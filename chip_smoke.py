@@ -25,6 +25,20 @@ Phases, each of which raises on failure (non-zero exit):
    equal the card's.
 5. known path: a small utils.testing clip whose camera path is known;
    the card's offsets must equal the true camera deltas.
+6. cc kernels: K4's labels (K4a) and labels + stats (K4c) against their
+   plain versions, exact, timed beside them: NES [256, 240, 256] on K1's
+   medians of the sprite clip, C64 [64, 312, 388] on values 0..2,
+   gameplay [64, 272, 372] on tiles with noise, and [4, 1080, 1920]
+   stripes, spiral, snake and a flat plane.
+7. foreground path: bench.make_clip frames with 8 solid 12x12 sprites
+   moving +-2 px a frame, 4 batches of 256: the streaming step gives
+   offsets -> collect.segment_positions -> collect.blit_pass ->
+   foreground.filter_fragments, counts zeroed just before the chain and
+   read just after, any host sync inside extract_batch raising.  Every
+   batch must launch K1, K4 and K3, every frame with a visible sprite
+   must get a non-empty foreground mask, the filtered canvases must hold
+   fewer pixels of conflicting colours than the unfiltered ones, and on
+   the first 256 frames the card's canvases must equal the CPU's.
 
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device the script exits
@@ -47,6 +61,8 @@ N_BATCHES = 4
 STEPS = 12
 CAPACITY = 640
 ATLAS_PAD = 128
+SPRITES = 8                # foreground clip: solid sprites per frame
+SPRITE = 12
 
 
 def log(msg: str) -> None:
@@ -317,6 +333,257 @@ def known_path_phase(dev):
         raise AssertionError("offsets differ from the true camera path")
 
 
+def sprite_clip(clean: np.ndarray, seed: int = 5) -> np.ndarray:
+    """``clean`` frames with SPRITES solid SPRITE x SPRITE sprites painted
+    in, each moving +-2 px a frame (utils/testing.py render_clip)."""
+    rng = np.random.default_rng(seed)
+    frames = clean.copy()
+    lo, hi_x, hi_y = 8, W - 8 - SPRITE, H - 8 - SPRITE
+    sprites = [[int(rng.integers(lo, hi_x)), int(rng.integers(lo, hi_y)),
+                int(rng.integers(0, 16))] for _ in range(SPRITES)]
+    for frame in frames:
+        for s in sprites:
+            x, y, colour = s
+            frame[y:y + SPRITE, x:x + SPRITE] = colour
+            s[0] = int(np.clip(x + rng.integers(-2, 3), lo, hi_x))
+            s[1] = int(np.clip(y + rng.integers(-2, 3), lo, hi_y))
+    return frames
+
+
+def _spiral(h, w, step):
+    img = np.zeros((h, w), np.uint8)
+    img[::step, :] = 1
+    for i, r in enumerate(range(0, h, step)):
+        img[r, -2 if i % 2 == 0 else 1] = 0
+    return img
+
+
+def _snake(h, w):
+    img = np.zeros((h, w), np.uint8)
+    for i, r in enumerate(range(1, h - 2, 2)):
+        img[r, 1:w - 1] = 1
+        if r + 1 < h - 2:
+            img[r + 1, (w - 2) if i % 2 == 0 else 1] = 1
+    return img
+
+
+def cc_kernel_phase(dev, sprite_frames):
+    """K4 against its plain versions at the foreground path's shape and
+    at the sizes the TPU kernel had to band; returns the two kernels'
+    entries (without launch counts)."""
+    import torch
+
+    from remap_tpu.core.regions import make_layout
+    from remap_tpu_torch.ops import cc, kpe
+    from remap_tpu_torch.ops.kernels import cc as kcc
+
+    rng = np.random.default_rng(40)
+    nes = torch.as_tensor(sprite_frames[:BATCH], device=dev)
+    tiles = np.kron(rng.integers(0, 16, (64, 272 // 8, 372 // 4 + 1)),
+                    np.ones((1, 8, 4), np.int64))[:, :, :372]
+    noise = rng.integers(0, 16, tiles.shape)
+    gameplay = np.where(rng.random(tiles.shape) < 0.1, noise, tiles)
+    stripes = np.tile(np.repeat(rng.integers(0, 4, 241), 8)[None, :1920],
+                      (1080, 1))
+    shapes = {
+        "NES [256,240,256] medians": kpe.extract_dense(
+            nes, make_layout(W, H, 1, 1, 0)).median,
+        "C64 [64,312,388]": rng.integers(0, 3, (64, 312, 388)),
+        "gameplay [64,272,372]": gameplay,
+        "tall [4,1080,1920]": np.stack([
+            _spiral(1080, 1920, 6), stripes, _snake(1080, 1920),
+            np.zeros((1080, 1920))]),
+    }
+    err_l = err_s = 0
+    times = {}
+    for name, imgs in shapes.items():
+        images = torch.as_tensor(imgs, device=dev).to(torch.uint8)
+        changed = torch.as_tensor(
+            (rng.random(tuple(images.shape)) < 0.05).astype(np.uint8),
+            device=dev)
+        err_l = max(err_l, require_equal(
+            (kcc.label_components_batch(images),),
+            (cc.label_components(images),), f"cc labels {name}"))
+        err_s = max(err_s, require_equal(
+            kcc.label_stats_batch(images, changed),
+            cc.label_stats(images, changed), f"cc stats {name}"))
+        ms_l = time_ms(lambda: kcc.label_components_batch(images), 20)
+        plain_l = time_ms(lambda: cc.label_components(images), 3)
+        ms_s = time_ms(lambda: kcc.label_stats_batch(images, changed), 20)
+        plain_s = time_ms(lambda: cc.label_stats(images, changed), 3)
+        times[name] = (ms_l, plain_l, ms_s, plain_s)
+        log(f"cc {name}: labels and stats equal (exact, tolerance 0, "
+            f"border included); labels kernel {ms_l:.4f} ms, plain "
+            f"{plain_l:.4f} ms; stats kernel {ms_s:.4f} ms, plain "
+            f"{plain_s:.4f} ms")
+    ms_l, plain_l, ms_s, plain_s = times["NES [256,240,256] medians"]
+    return [
+        {"name": "cc_labels", "route": "cuda",
+         "source": "remap_tpu_torch/csrc/cc.cu",
+         "replaces": "remap_tpu/ops/pallas/cc.py:168",
+         "max_abs_err": err_l, "ms": ms_l, "plain_ms": plain_l},
+        {"name": "cc_stats", "route": "cuda",
+         "source": "remap_tpu_torch/csrc/cc.cu",
+         "replaces": "remap_tpu/ops/pallas/cc.py:413",
+         "max_abs_err": err_s, "ms": ms_s, "plain_ms": plain_s},
+    ]
+
+
+def conflicting_pixels(fragments) -> int:
+    """Canvas pixels holding votes for more than one colour."""
+    return sum(int(((f.dots_dev[:, :f.shape[0], :f.shape[1]] > 0).sum(0)
+                    > 1).sum()) for f in fragments)
+
+
+def foreground_chain(dev, frames_np, step_fn, init_state, cfg, traced):
+    """Stream step -> segment_positions -> blit_pass -> filter_fragments
+    over all frames, with ``traced`` standing in for extract_batch;
+    returns (unfiltered, filtered fragments, store, offsets, matched,
+    device ms of filter_fragments)."""
+    import torch
+
+    from remap_tpu_torch.ops import fde
+    from remap_tpu_torch.pipeline import collect, foreground, state
+
+    store = state.FrameStore(H, W, device=dev)
+    st = init_state()
+    offs, matched = [], []
+    for i, batch in enumerate(np.split(frames_np, N_BATCHES)):
+        imgs = torch.as_tensor(batch, device=dev)
+        out = step_fn(imgs, st)
+        st = out[-1]
+        offs.append(out[0])
+        matched.append(out[1])
+        store.put_packed_batch(
+            list(range(i * BATCH, (i + 1) * BATCH)),
+            state.pack_nibbles_batch(batch),
+            device_packed=state.pack_nibbles_device(imgs))
+    offsets = torch.cat(offs).cpu().numpy()
+    matched = torch.cat(matched).cpu().numpy()
+    unfiltered = collect.blit_pass(
+        collect.segment_positions(offsets, matched), store, cfg)
+    real = fde.extract_batch
+    fde.extract_batch = traced
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        filtered = foreground.filter_fragments(unfiltered, cfg)
+        end.record()
+    finally:
+        fde.extract_batch = real
+    end.synchronize()
+    return (unfiltered, filtered, store, offsets, matched,
+            start.elapsed_time(end))
+
+
+def foreground_phase(dev, frames_np, clean_np, counters):
+    """The foreground path at full width on the card; returns its
+    measurements and launch counts."""
+    import torch
+
+    from remap_tpu_torch.ops import fde
+    from remap_tpu_torch.parallel.sharded import make_streaming_step
+
+    cfg, layout = bench_config()
+    init_state, step = make_streaming_step(layout, cfg, atlas_pad=ATLAS_PAD,
+                                           device=dev)
+    real = fde.extract_batch
+    calls = []
+
+    def traced(*args, **kwargs):
+        before = [c.launches for c in counters]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")   # a host sync raises
+        try:
+            start.record()
+            fg = real(*args, **kwargs)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append((before, [c.launches for c in counters], start, end,
+                      fg))
+        return fg
+
+    # warm-up (allocator, lazy init); not part of the counted run
+    foreground_chain(dev, frames_np, step, init_state, cfg, real)
+    torch.cuda.synchronize()
+
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    unfiltered, filtered, store, offsets, matched, pass_ms = (
+        foreground_chain(dev, frames_np, step, init_state, cfg, traced))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+
+    # every batch: K1, K4a, K4c inside extract_batch, then one K3 blit
+    names = ["extract", "tables", "blit", "cc_labels", "cc_stats"]
+    k1, k3, k4a, k4c = (names.index(n) for n in
+                        ("extract", "blit", "cc_labels", "cc_stats"))
+    for i, (before, after, *_rest) in enumerate(calls):
+        d = [a - b for a, b in zip(after, before)]
+        if (d[k1], d[k4a], d[k4c]) != (1, 1, 1):
+            raise AssertionError(f"foreground batch {i}: launches {d}")
+        nxt = calls[i + 1][0] if i + 1 < len(calls) else launches
+        if nxt[k3] - after[k3] != 1:
+            raise AssertionError(f"foreground batch {i}: no K3 blit")
+
+    # every frame with a visible sprite gets a non-empty mask
+    numbers = []
+    for frag in unfiltered:
+        nums = [r.number for r in frag.frames]
+        numbers += [nums[i:i + BATCH] for i in range(0, len(nums), BATCH)]
+    visible = (frames_np != clean_np).reshape(len(frames_np), -1).any(1)
+    for chunk, (*_rest, fg) in zip(numbers, calls):
+        nonempty = fg[:len(chunk)].flatten(1).any(1).cpu().numpy()
+        missed = [n for n, ok in zip(chunk, nonempty) if visible[n] and not ok]
+        if missed:
+            raise AssertionError(f"frames {missed[:8]} have a visible sprite "
+                                 "but an empty foreground mask")
+    before_px = conflicting_pixels(unfiltered)
+    after_px = conflicting_pixels(filtered)
+    if not after_px < before_px:
+        raise AssertionError(f"filtering left {after_px} conflicting pixels "
+                             f"of {before_px}")
+    batch_ms = [s.elapsed_time(e) for _b, _a, s, e, _fg in calls]
+    return {
+        "launches": dict(zip(names, launches)),
+        "batch_ms": batch_ms, "pass_ms": pass_ms, "batches": len(calls),
+        "wall_s": wall, "fragments": len(filtered),
+        "matched": float(matched.mean()),
+        "conflicts": (before_px, after_px), "store": store,
+        "offsets": offsets, "matched_flags": matched,
+        "visible": int(visible.sum()),
+    }
+
+
+def foreground_cpu_phase(fg):
+    """The first 256 frames through blit_pass and filter_fragments on the
+    card and on CPU tensors (the plain versions): equal canvases."""
+    from remap_tpu_torch.pipeline import collect, foreground, state
+
+    cfg, _ = bench_config()
+    segments = collect.segment_positions(fg["offsets"][:BATCH],
+                                         fg["matched_flags"][:BATCH])
+    numbers = list(range(BATCH))
+    cpu_store = state.FrameStore(H, W, device="cpu")
+    cpu_store.put_packed_batch(numbers,
+                               fg["store"].packed_images_batch(numbers))
+    outs = []
+    for store in (fg["store"], cpu_store):
+        frags = collect.blit_pass(segments, store, cfg)
+        outs.append((frags, foreground.filter_fragments(frags, cfg)))
+    (card_u, card_f), (cpu_u, cpu_f) = outs
+    for a, b in zip(card_u + card_f, cpu_u + cpu_f):
+        if a.shape != b.shape or not np.array_equal(a.dots, b.dots):
+            raise AssertionError("foreground canvases differ between the "
+                                 "card and the CPU")
+    return len(card_f)
+
+
 def main() -> int:
     import torch
 
@@ -326,7 +593,7 @@ def main() -> int:
         return 1
     from bench import make_clip
     from remap_tpu_torch.ops import _build
-    from remap_tpu_torch.ops.kernels import blit, extract, tables
+    from remap_tpu_torch.ops.kernels import blit, cc, extract, tables
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -369,6 +636,34 @@ def main() -> int:
 
     known_path_phase(dev)
     log("known path: offsets equal the true camera deltas")
+
+    sprites = sprite_clip(frames)
+    cc_entries = cc_kernel_phase(dev, sprites)
+    fg_counters = counters + [cc.label_components_cuda, cc.label_stats_cuda]
+    fg = foreground_phase(dev, sprites, frames, fg_counters)
+    for k in cc_entries:
+        k["launches"] = fg["launches"][k["name"]]
+    kernels += cc_entries
+    n_frames = BATCH * N_BATCHES
+    total_ms = sum(fg["batch_ms"])
+    log(f"foreground path: {n_frames} frames, matched "
+        f"{fg['matched']:.2%}, {fg['fragments']} fragment(s); launches "
+        f"{fg['launches']}; {fg['visible']} frames with a visible sprite, "
+        "every one masked; conflicting canvas px "
+        f"{fg['conflicts'][0]} -> {fg['conflicts'][1]}")
+    pass_ms = fg["pass_ms"] / fg["batches"]
+    log("foreground extract_batch ms per 256-frame batch: "
+        + ", ".join(f"{t:.3f}" for t in fg["batch_ms"])
+        + f" (median {statistics.median(fg['batch_ms']):.3f}; "
+        f"{n_frames / (total_ms / 1000.0):.1f} frames/s); whole "
+        f"filter_fragments {fg['pass_ms']:.3f} ms = {pass_ms:.3f} ms per "
+        f"batch ({BATCH / (pass_ms / 1000.0):.1f} frames/s); chain wall "
+        f"{fg['wall_s']:.3f} s (stream + blit pass + foreground, "
+        f"{n_frames / fg['wall_s']:.1f} frames/s) on {smi}")
+    t0 = time.perf_counter()
+    n = foreground_cpu_phase(fg)
+    log(f"foreground cpu: first {BATCH} frames, {n} fragment(s), canvases "
+        f"equal on CPU tensors ({time.perf_counter() - t0:.1f} s)")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

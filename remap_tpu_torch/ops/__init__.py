@@ -1,2 +1,3 @@
-"""Device ops of the port: extraction, tables, matching and the kernel
-wrappers under ``kernels``."""
+"""Device ops of the port: extraction, tables, matching, component
+labels, foreground masks, canvases and the kernel wrappers under
+``kernels``."""

@@ -2,11 +2,15 @@
 
 Every ``csrc/*.cu`` file is compiled, at first use, into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
-seconds rather than the minutes ``torch.utils.cpp_extension`` needs):
+seconds rather than the minutes ``torch.utils.cpp_extension`` needs).
+One ``nvcc`` per source runs at the same time, then one links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/libremap_kernels-<hash>.so
-         csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <objs>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/libremap_kernels-<hash>.so <objs>/*.o
+
+(``<objs>`` is a scratch directory under ``build/``, removed after.)
 
 (``-Xptxas -v``: each kernel's registers, shared memory and spills, kept
 in the ``.log`` beside the library.)
@@ -34,10 +38,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -57,6 +60,10 @@ SIGNATURES = {
                      _P, _P, _P, _P, _P, _P],
     # frames, vote_ok, pos, F, H, W, dots_in, dots_out, AH, AW, stream
     "remap_blit": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
+    # images, B, H, W, labels, stream
+    "remap_cc_labels": [_P, _I, _I, _I, _P, _P],
+    # labels, changed, B, H, W, slots, stats, stream
+    "remap_cc_stats": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -92,6 +99,28 @@ def library_path() -> Path:
     return BUILD_DIR / f"libremap_kernels-{_digest()}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at the same time; their output, or raise with it
+    if one failed.  No process outlives the call."""
+    procs = []
+    try:
+        for c in cmds:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log = "".join(logs)
+    failed = [f"{' '.join(c)} ({p.returncode})"
+              for c, p in zip(cmds, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n" + log)
+    return log
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the kernels unless an up-to-date build exists.
 
@@ -101,17 +130,23 @@ def build() -> tuple[Path, float, str]:
     if out.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return out, 0.0, log
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = BUILD_DIR / f"{out.stem}.{os.getpid()}.objs"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    objs = [obj_dir / f"{src.stem}.o" for src in sources()]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(sources(), objs)])
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                          *(str(o) for o in objs)]])
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
     log_path.write_text(log)
     os.replace(tmp, out)   # atomic: a concurrent build never sees a torn file
     return out, seconds, log

@@ -84,6 +84,13 @@ def _shift_atlas(dots: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return out * (y_ok[None, :, None] & x_ok[None, None, :])
 
 
+#: table modes whose tables the port's topk ``build_tables`` gives: "auto"
+#: resolves to topk off the TPU for the stream (remap_tpu/ops/tables.py
+#: ``resolve_table_mode``), "pallas" is the TPU kernel of the same
+#: selection, and "sort" is documented identical to topk
+TOPK_TABLE_MODES = ("auto", "topk", "pallas", "sort")
+
+
 def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
                         atlas_pad: int = 128, device=None):
     """Build ``(init_state, step)``.
@@ -93,7 +100,14 @@ def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
     device and returns ``(offsets [T, 2] int32, matched [T] bool,
     StreamFlags, strayed [] bool, new_state)``.  The stitch window follows
     the camera (re-anchoring in-device); ``strayed`` fires when one
-    batch's position span exceeds the window itself."""
+    batch's position span exceeds the window itself.  Raises for a
+    ``cfg.table_mode`` the port does not implement."""
+    if cfg.table_mode == "sort2":
+        # sort2 has its own chunk-quota overflow flag (ops/tables.py)
+        raise NotImplementedError(
+            "table_mode='sort2' is not implemented in the port")
+    if cfg.table_mode not in TOPK_TABLE_MODES:
+        raise ValueError(f"unknown table_mode {cfg.table_mode!r}")
     h, w = layout.height, layout.width
     ah, aw = h + 2 * atlas_pad, w + 2 * atlas_pad
     dev = get_device(device)

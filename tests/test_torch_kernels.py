@@ -16,9 +16,12 @@ import torch
 from remap_tpu.config import PipelineConfig
 from remap_tpu.core.regions import make_layout
 from remap_tpu.utils import testing
+from remap_tpu_torch.ops import cc as tcc
+from remap_tpu_torch.ops import fde as tfde
 from remap_tpu_torch.ops import kpe as tkpe
 from remap_tpu_torch.ops import tables as ttab
 from remap_tpu_torch.ops.kernels import blit as kblit
+from remap_tpu_torch.ops.kernels import cc as kcc
 from remap_tpu_torch.ops.kernels import extract as kext
 from remap_tpu_torch.ops.kernels import tables as ktab
 from remap_tpu_torch.parallel import sharded as tsharded
@@ -130,3 +133,88 @@ def test_stream_cuda_matches_cpu(cuda_device):
         for name in ("dots", "position", "anchor"):
             assert torch.equal(getattr(c_state, name),
                                getattr(g_state, name).cpu()), name
+
+
+def _cc_cases(rng):
+    """Adversarial contents for the union-find labeller: iid noise of
+    values 0..2, an all-equal plane, full-height stripes, a spiral of
+    long bars, a 1-px snake; widths off multiples of 32; frames past
+    2^16 pixels."""
+    def spiral(h, w, step):
+        img = np.zeros((h, w), np.uint8)
+        img[::step, :] = 1
+        for i, r in enumerate(range(0, h, step)):
+            img[r, -2 if i % 2 == 0 else 1] = 0
+        return img
+
+    def snake(h, w):
+        img = np.zeros((h, w), np.uint8)
+        for i, r in enumerate(range(1, h - 2, 2)):
+            img[r, 1:w - 1] = 1
+            if r + 1 < h - 2:
+                img[r + 1, (w - 2) if i % 2 == 0 else 1] = 1
+        return img
+
+    def stripes(h, w):
+        cols = np.repeat(rng.integers(0, 4, w // 8 + 1).astype(np.uint8), 8)
+        return np.tile(cols[None, :w], (h, 1))
+
+    return {
+        "noise": rng.integers(0, 3, (8, 272, 372), dtype=np.uint8),
+        "c64": rng.integers(0, 3, (4, 312, 388), dtype=np.uint8),
+        "tall": np.stack([spiral(1080, 1920, 6), stripes(1080, 1920),
+                          snake(1080, 1920),
+                          np.zeros((1080, 1920), np.uint8)]),
+        "tiny": rng.integers(0, 2, (5, 4, 3), dtype=np.uint8),
+    }
+
+
+@pytest.mark.parametrize("case", ["noise", "c64", "tall", "tiny"])
+def test_cc_kernel_matches_plain(cuda_device, case):
+    """K4 labels and stats equal the plain versions on every element,
+    border included, and the kernel never waits for the card."""
+    rng = np.random.default_rng(44)
+    images = to_torch(_cc_cases(rng)[case], cuda_device)
+    changed = to_torch((rng.random(images.shape) < 0.05).astype(np.uint8),
+                       cuda_device)
+    before = (kcc.label_components_cuda.launches,
+              kcc.label_stats_cuda.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        labels = kcc.label_components_batch(images)
+        got = kcc.label_stats_batch(images, changed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (kcc.label_components_cuda.launches,
+            kcc.label_stats_cuda.launches) == (before[0] + 2, before[1] + 1)
+    want = tcc.label_stats(images, changed)
+    torch.cuda.synchronize()
+    assert torch.equal(labels, want[0])
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def test_foreground_cuda_matches_cpu(cuda_device):
+    """extract_batch on the card (K1, K4) equals the CPU plain path and
+    never waits for the card."""
+    rng = np.random.default_rng(45)
+    h, w = 240, 256
+    bg = rng.integers(0, 16, (h + 40, w + 40), dtype=np.uint8)
+    pos = np.stack([rng.integers(0, 40, 16), rng.integers(0, 40, 16)],
+                   -1).astype(np.int32)
+    frames = np.stack([bg[y:y + h, x:x + w] for x, y in pos])
+    for f in frames:
+        y, x = rng.integers(8, h - 20, 2)
+        f[y:y + 12, x:x + 12] = rng.integers(0, 16)
+    args = [to_torch(a, cuda_device) for a in (bg, frames)]
+    p_dev = to_torch(pos, cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tfde.extract_batch(args[0], args[1], None, p_dev,
+                                 compute_medians=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = tfde.extract_batch(to_torch(bg), to_torch(frames), None,
+                              to_torch(pos), compute_medians=True)
+    assert torch.equal(got.cpu(), want)
+    assert bool(want.any())

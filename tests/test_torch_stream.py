@@ -161,11 +161,32 @@ def test_stream_handover_from_jax():
     _run_both(frames[8:], port_state=port_state, jax_state=jax_state)
 
 
+@pytest.mark.parametrize("mode", ["auto", "topk", "pallas", "sort",
+                                  "sort2", "bogus"])
+def test_stream_table_modes(mode):
+    """auto, topk, pallas and sort select the topk tables the port
+    builds; sort2 (its own chunk-quota overflow flag) and unknown modes
+    raise instead of running as topk."""
+    cfg = dataclasses.replace(STREAM_CFG, table_mode=mode)
+    build = functools.partial(tsharded.make_streaming_step, LAYOUT, cfg,
+                              atlas_pad=PAD, device="cpu")
+    if mode in tsharded.TOPK_TABLE_MODES:
+        init, step = build()
+        offsets = step(to_torch(_break_frames()[:BATCH]), init())[0]
+        assert offsets.shape == (BATCH, 2)
+    else:
+        err = NotImplementedError if mode == "sort2" else ValueError
+        with pytest.raises(err, match=mode):
+            build()
+
+
 def test_port_imports_no_jax():
-    """The port's package and its streaming step never import JAX."""
+    """The port's package, its streaming step and its foreground stage
+    never import JAX."""
     code = (
         "import sys, remap_tpu_torch, remap_tpu_torch.parallel.sharded, "
-        "remap_tpu_torch.convert; assert 'jax' not in sys.modules, "
+        "remap_tpu_torch.pipeline.foreground, remap_tpu_torch.convert; "
+        "assert 'jax' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith('jax'))"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
