@@ -8,11 +8,11 @@ Phases, each of which raises on failure (non-zero exit):
 1. build: compiles remap_tpu_torch/csrc/*.cu with nvcc (sm_90a).
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, with exact equality (every output is an integer), timed
-   with CUDA events beside the plain version:
+   with CUDA events beside the plain version (queued behind a spin
+   kernel, so the host's launch cost does not show):
    extract (K1) and its medians-only instantiation at NES
    [256, 240, 256] and C64 [64, 312, 388], tables (K2) at NES / capacity
-   640 on K1's output and on a dense plane that overflows, blit (K3) at
-   the streaming shapes onto votes near the uint16 wrap.
+   640 on K1's output and on a dense plane that overflows.
 3. main path: the port's make_streaming_step at the JAX package's
    benchmark configuration (NES, batches of 256, capacity 640,
    multiplicity 1, vote radius 16, atlas pad 128) on utils.clips.make_clip
@@ -20,7 +20,16 @@ Phases, each of which raises on failure (non-zero exit):
    inside a step raising.
    Every step must be flag-free and not strayed, the last must match
    100%, every kernel must have launched on every step, and every
-   covered atlas pixel must hold one colour.
+   covered atlas pixel must hold one colour; the device operations of
+   one step are counted (torch.profiler).
+3b. blit kernel: K3 in place against its plain version, exact, onto
+   votes near the uint16 wrap, every bin outside the frames' box left as
+   it was: 256 NES frames at random positions with a vote_ok plane (both
+   polarities), at the step's own positions for the first batch (no
+   plane, as the step blits), and at those positions inside a 1992x3584
+   fragment canvas [16, 2008, 3840]; each timed with its grid over the
+   frames' box and over the whole canvas, beside the plain version and
+   the library accumulation.
 4. cpu: the first 4 batches again on CPU tensors (the plain versions);
    offsets, matched, flags, strayed, anchor, position and the atlas must
    equal the card's.
@@ -48,9 +57,13 @@ The line before the last is a JSON object of the kernels: for each, its
 launches on the main path that runs it, its largest difference from the
 plain version, its time, the plain version's, its bound (the bytes it must
 move, each input read once and each output written once, over the
-H100's 3.35 TB/s; every kernel here is integer work below that line),
-share = bound / time, and library_ms, null since no single PyTorch call
-computes any of these functions.  The last line is {"ok": true,
+H100's 3.35 TB/s; every kernel here is integer work below that line;
+K3's: the frames plus the frames' box of 16 bins in and out, as it
+updates the canvas in place), share = bound / time, and library_ms: for
+K3 (blit, and blit_fragment, the same kernel on the fragment canvas) one
+index_put_(accumulate=True) of the votes on precomputed bins, null for
+the others, since no single PyTorch call computes them.  The last line
+is {"ok": true,
 "device": {...}}.  Without a CUDA device the script exits non-zero and
 prints no result.
 """
@@ -74,6 +87,7 @@ ATLAS_PAD = 128
 SPRITES = 8                # foreground clip: solid sprites per frame
 SPRITE = 12
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+SPIN_HZ = 2.0e9            # spin cycles a second, above the H100's clock
 
 
 def log(msg: str) -> None:
@@ -81,14 +95,23 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call over ``reps`` calls (CUDA events,
-    one warm-up call first)."""
+    """Mean device milliseconds per call over ``reps`` calls: CUDA events
+    around the calls, queued behind a spin kernel that outlasts their
+    enqueue, so the host's launch cost does not show (one warm-up call
+    first).  A call that waits for the card (the plain versions) waits
+    out the spin first and still counts its own host time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * enqueue_s * SPIN_HZ) + 1000)
     start.record()
     for _ in range(reps):
         fn()
@@ -128,12 +151,13 @@ def bound_ms(inputs, outputs) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def kernel_entry(name, replaces, source, err, ms, plain, bound) -> dict:
+def kernel_entry(name, replaces, source, err, ms, plain, bound,
+                 library=None) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"remap_tpu_torch/csrc/{source}",
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-            "share": bound / ms, "library_ms": None}
+            "share": bound / ms, "library_ms": library}
 
 
 def require_equal(got, want, what: str) -> int:
@@ -151,7 +175,6 @@ def kernel_phase(dev, frames_np):
 
     from remap_tpu_torch.core.regions import make_layout
     from remap_tpu_torch.ops import kpe, tables
-    from remap_tpu_torch.ops.kernels import blit
 
     nes = make_layout(W, H, 4, 2, 16)
     images = torch.as_tensor(frames_np[:BATCH], device=dev)
@@ -218,39 +241,134 @@ def kernel_phase(dev, frames_np):
         f"plane overflows); kernel {ms2:.4f} ms, plain {plain2:.4f} ms, "
         f"bound {bound2:.4f} ms")
 
-    # K3 at the streaming shapes, onto votes near the uint16 wrap
-    ah, aw = H + 2 * ATLAS_PAD, W + 2 * ATLAS_PAD
-    pos = torch.as_tensor(np.stack([
-        rng.integers(0, aw - W + 1, BATCH), rng.integers(0, ah - H + 1, BATCH)
-    ], -1).astype(np.int32), device=dev)
-    vote_ok = torch.as_tensor(
-        (rng.random((BATCH, H, W)) < 0.9).astype(np.uint8), device=dev)
-    dots = torch.as_tensor(rng.integers(
-        65400, 65536, (blit.DEPTH,) + blit.padded_dims(ah, aw)
-    ).astype(np.int32), device=dev)
-    got3 = blit.blit_frames(images, vote_ok, pos, ah, aw, dots=dots)
-    err3 = require_equal((got3,), (blit.blit_frames_plain(
-        images, vote_ok, pos, ah, aw, dots=dots),), "blit")
-    if not bool((got3 < dots).any()):
-        raise AssertionError("the blit test should wrap some counters")
-    ms3 = time_ms(lambda: blit.blit_frames(images, vote_ok, pos, ah, aw,
-                                           dots=dots), 20)
-    plain3 = time_ms(lambda: blit.blit_frames_plain(images, vote_ok, pos, ah,
-                                                    aw, dots=dots), 3)
-    bound3 = bound_ms((images, vote_ok, pos, dots), (got3,))
-    log(f"blit {BATCH} frames into [{ah},{aw}]: equal (exact, tolerance 0; "
-        f"counters wrap); kernel {ms3:.4f} ms, plain {plain3:.4f} ms, "
-        f"bound {bound3:.4f} ms")
-
     return [
         kernel_entry("extract", "remap_tpu/ops/pallas/extract.py:215",
                      "extract.cu", err1, ms1, plain1, bound1),
         kernel_entry("tables", "remap_tpu/ops/pallas/tables.py:189",
                      "tables.cu", err2, ms2, plain2, bound2),
-        kernel_entry("blit", "remap_tpu/ops/pallas/blit.py:130",
-                     "blit.cu", err3, ms3, plain3, bound3),
     ], kernel_entry("extract_medians", "remap_tpu/ops/pallas/extract.py:215",
                     "extract.cu", err_m, ms_m, plain_m, bound_m)
+
+
+def blit_phase(dev, frames_np, offsets, matched):
+    """K3 against its plain version on the card, exact, onto votes near
+    the uint16 wrap, leaving every bin outside the frames' box as it was:
+    256 NES frames at random positions with a vote_ok plane (both
+    polarities), at the streaming step's own positions for the bench
+    clip (no plane: the step's blit), and at the same positions inside a
+    1992x3584 fragment canvas; then times and bounds.  Returns the step's
+    and the fragment's entries (without launch counts)."""
+    import torch
+
+    from remap_tpu_torch.ops.kernels import blit
+    from remap_tpu_torch.parallel.sharded import segmented_positions
+
+    images = torch.as_tensor(frames_np[:BATCH], device=dev)
+    ah, aw = H + 2 * ATLAS_PAD, W + 2 * ATLAS_PAD
+    rng = np.random.default_rng(33)
+    gen = torch.Generator(device=dev).manual_seed(34)
+
+    def check(what, pos_np, canvas_hw, vote=None, polarity="nonzero"):
+        pos = torch.as_tensor(pos_np, device=dev)
+        dots = torch.randint(65400, 65536, (blit.DEPTH,) + blit.padded_dims(
+            *canvas_hw), generator=gen, dtype=torch.int32, device=dev)
+        box = blit.frames_box(pos_np, H, W)
+        got = dots.clone()
+        blit.blit_frames_(images, pos, got, vote=vote,
+                          vote_polarity=polarity, box=box)
+        want = blit.blit_frames_plain_(images, pos, dots.clone(), vote=vote,
+                                       vote_polarity=polarity)
+        err = require_equal((got,), (want,), what)
+        if not bool((got < dots).any()):
+            raise AssertionError(f"{what}: no counter wrapped")
+        x_lo, y_lo, x_hi, y_hi = box
+        outside = torch.ones(dots.shape[1:], dtype=torch.bool, device=dev)
+        outside[y_lo:y_hi, x_lo:x_hi] = False
+        if not torch.equal(got[:, outside], dots[:, outside]):
+            raise AssertionError(f"{what}: bins outside the box changed")
+        return err, pos, box, dots
+
+    def measure(what, pos, box, dots):
+        """Kernel, plain and library times, in place on one canvas, and
+        the bounds: frames plus the box's bins in and out (bound_ms), the
+        voted bins alone, and the whole canvas in and out (the old
+        design's)."""
+        canvas = dots.clone()
+        ms = time_ms(lambda: blit.blit_frames_(images, pos, canvas, box=box),
+                     50)
+        grid_ms = time_ms(lambda: blit.blit_frames_(images, pos, canvas), 50)
+        plain = time_ms(lambda: blit.blit_frames_plain_(images, pos, canvas),
+                        3)
+        # the accumulation alone, given the bins (their computation is
+        # excluded): one index_put_ with accumulate=True
+        _, ahp, awp = dots.shape
+        p64 = pos.to(torch.int64)
+        ys = p64[:, 1, None, None] + torch.arange(H, device=dev)[None, :, None]
+        xs = p64[:, 0, None, None] + torch.arange(W, device=dev)[None, None, :]
+        colour = images.to(torch.int64)
+        bins = (colour * (ahp * awp) + ys * awp + xs)[colour < blit.DEPTH]
+        ones = torch.ones_like(bins, dtype=torch.int32)
+        flat = canvas.view(-1)
+        library = time_ms(lambda: flat.index_put_((bins,), ones,
+                                                  accumulate=True), 50)
+        x_lo, y_lo, x_hi, y_hi = box
+        frame_bytes = images.numel()
+        bound = (frame_bytes + 2 * 4 * blit.DEPTH * (
+            x_hi - x_lo) * (y_hi - y_lo)) / HBM_BYTES_PER_S * 1e3
+        voted = int(torch.unique(bins).numel())
+        voted_bound = (frame_bytes + 2 * 4 * voted) / HBM_BYTES_PER_S * 1e3
+        whole = (frame_bytes + 2 * dots.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        log(f"{what}: kernel {ms:.4f} ms (grid over the box; over the whole "
+            f"canvas {grid_ms:.4f}), plain {plain:.4f} ms, library "
+            f"index_put_(accumulate=True) on precomputed bins (their "
+            f"computation excluded) {library:.4f} ms; bound {bound:.4f} ms "
+            f"(frames + box {x_hi - x_lo}x{y_hi - y_lo} x 16 bins in and "
+            f"out), voted bins only {voted_bound:.4f} ms ({voted} bins), "
+            f"whole canvas {tuple(dots.shape)} in and out {whole:.4f} ms "
+            "(the old design's bound)")
+        return ms, plain, bound, library
+
+    pos_r = np.stack([rng.integers(0, aw - W + 1, BATCH),
+                      rng.integers(0, ah - H + 1, BATCH)], -1).astype(np.int32)
+    vote_ok = torch.as_tensor((rng.random((BATCH, H, W)) < 0.9)
+                              .astype(np.uint8), device=dev)
+    err = max(check("blit random", pos_r, (ah, aw), vote=vote_ok)[0],
+              check("blit random masks", pos_r, (ah, aw), vote=vote_ok,
+                    polarity="zero")[0])
+    seg = segmented_positions(torch.as_tensor(offsets)[None],
+                              torch.as_tensor(matched)[None])[0].numpy()
+    pos_s = np.clip(seg + ATLAS_PAD, 0, [aw - W, ah - H]).astype(np.int32)
+    err_s, pos, box, dots = check("blit step", pos_s, (ah, aw))
+    err_f, pos_f, box_f, dots_f = check(
+        "blit fragment", pos_s + np.array([1664, 880], np.int32),
+        (1992, 3584))
+    log(f"blit {BATCH} frames: random positions (vote_ok and masks), the "
+        f"step's positions, and the step's positions in a 1992x3584 "
+        f"fragment canvas {tuple(dots_f.shape)}: equal (exact, tolerance 0; "
+        "counters wrap; bins outside the box unchanged)")
+    step = measure(f"blit step positions into {tuple(dots.shape)}", pos, box,
+                   dots)
+    frag = measure(f"blit fragment {tuple(dots_f.shape)}", pos_f, box_f,
+                   dots_f)
+    log(f"blit fragment / step time: {frag[0] / step[0]:.3f}")
+    return (kernel_entry("blit", "remap_tpu/ops/pallas/blit.py:130",
+                         "blit.cu", max(err, err_s), *step),
+            kernel_entry("blit_fragment", "remap_tpu/ops/pallas/blit.py:130",
+                         "blit.cu", err_f, *frag))
+
+
+def kernels_per_step(step, batch, state) -> int:
+    """Device kernels one streaming step launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step(batch, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(batch, state)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type.name == "CUDA")
 
 
 def bench_config():
@@ -332,6 +450,7 @@ def main_path_phase(dev, frames_np, counters):
         raise AssertionError("atlas pixels with conflicting colours")
 
     step_ms = [s.elapsed_time(e) for s, e in events]
+    n_kernels = kernels_per_step(step, batches[0], init_state())
     return {
         "first4": [host_outputs(o) for o in outs[:N_BATCHES]],
         "launches": launches,
@@ -339,6 +458,7 @@ def main_path_phase(dev, frames_np, counters):
         "step_ms": step_ms,
         "wall_s": wall,
         "covered_px": int((colours > 0).sum()),
+        "kernels_per_step": n_kernels,
     }
 
 
@@ -692,6 +812,10 @@ def main() -> int:
     counters = [extract.extract_dense_cuda, tables.build_tables_cuda,
                 blit.blit_frames_cuda]
     main = main_path_phase(dev, frames, counters)
+    blit_entry, fragment_entry = blit_phase(
+        dev, frames, main["first4"][0]["offsets"],
+        main["first4"][0]["matched"])
+    kernels.append(blit_entry)
     for k, n in zip(kernels, main["launches"]):
         k["launches"] = n
     fps = BATCH / (main["step_ms_median"] / 1000.0)
@@ -702,6 +826,8 @@ def main() -> int:
         f"({fps:.1f} frames/s); chain wall {main['wall_s']:.3f} s "
         f"({STEPS * BATCH / main['wall_s']:.1f} frames/s) on {smi}")
     log("step ms: " + ", ".join(f"{t:.3f}" for t in main["step_ms"]))
+    log(f"device operations per step: {main['kernels_per_step']} "
+        "(torch.profiler, one step)")
 
     t0 = time.perf_counter()
     cpu_phase(frames, main["first4"])
@@ -718,7 +844,8 @@ def main() -> int:
     fg = foreground_phase(dev, sprites, frames, fg_counters)
     for k in [medians_entry] + cc_entries:
         k["launches"] = fg["launches"][k["name"]]
-    kernels += [medians_entry] + cc_entries
+    fragment_entry["launches"] = fg["launches"]["blit"]
+    kernels += [medians_entry] + cc_entries + [fragment_entry]
     n_frames = BATCH * N_BATCHES
     total_ms = sum(fg["batch_ms"])
     log(f"foreground path: {n_frames} frames, matched "

@@ -62,8 +62,10 @@ SIGNATURES = {
     # out_codes, out_pos, out_valid, out_wcounts, out_overflow, stream
     "remap_tables": [_P, _P, _I, _I, _I, _P, _I, _I,
                      _P, _P, _P, _P, _P, _P],
-    # frames, vote_ok, pos, F, H, W, dots_in, dots_out, AH, AW, stream
-    "remap_blit": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
+    # frames, vote (null for none), polarity, pos, F, H, W, dots (in
+    # place), AH, AW, x_lo, y_lo, x_hi, y_hi, stream
+    "remap_blit": [_P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                   _P],
     # images, B, H, W, labels, slots (null for labels alone), stream
     "remap_cc_labels": [_P, _I, _I, _I, _P, _P, _P],
     # labels, changed, B, H, W, slots, stats, stream

@@ -178,9 +178,10 @@ def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
         dots0 = _shift_atlas(state.dots, delta)
         anchored = torch.minimum(torch.clamp(pos - anchor, min=0), limit)
 
-        vote_ok = torch.ones_like(images)
-        dots = blit_ops.blit_frames(images, vote_ok, anchored, ah, aw,
-                                    dots=dots0)
+        # dots0 is the step's own fresh tensor (state.dots stays as it
+        # was); anchored positions keep every frame in the logical window
+        dots = blit_ops.blit_frames_(images, anchored, dots0,
+                                     box=(0, 0, aw, ah))
 
         new_state = StreamState(
             dots=dots,

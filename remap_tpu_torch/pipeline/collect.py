@@ -41,13 +41,6 @@ def segment_positions(offsets: np.ndarray, matched: np.ndarray) -> Segments:
     return segments
 
 
-def validity_mask(n_real: int, b: int, h: int, w: int,
-                  device) -> torch.Tensor:
-    """``[b, h, w]`` uint8: 1 for the first ``n_real`` frames."""
-    real = (torch.arange(b, device=device) < n_real).to(torch.uint8)
-    return real[:, None, None].expand(b, h, w).contiguous()
-
-
 def padded_chunk(store: FrameStore, numbers: List[int], b: int,
                  medians: bool = False) -> torch.Tensor:
     """The stored frames (or medians) ``numbers``, unpacked on the store's
@@ -69,11 +62,18 @@ def chunk_positions(positions, zero: Tuple[int, int], b: int,
     return torch.as_tensor(apos, device=device)
 
 
+def chunk_box(positions, zero: Tuple[int, int], h: int,
+              w: int) -> Tuple[int, int, int, int]:
+    """The canvas box ``(x_lo, y_lo, x_hi, y_hi)`` that a chunk's ``h x w``
+    frames cover (the host bound that sizes K3's grid)."""
+    return kblit.frames_box(np.subtract(positions, zero), h, w)
+
+
 def blit_pass(segments: Segments, store: FrameStore,
               cfg: PipelineConfig) -> List[Fragment]:
-    """Build each fragment's canvas with chunked blits of its stored
-    frames (K3 on the card, its plain version on the CPU); padding frames
-    vote nowhere.  The canvases stay on the store's device."""
+    """Build each fragment's canvas with chunked in-place blits of its
+    stored frames (K3 on the card, its plain version on the CPU) over the
+    box each chunk covers.  The canvases stay on the store's device."""
     fh, fw = store.height, store.width
     b = cfg.frame_batch
     dev = store.device
@@ -83,10 +83,11 @@ def blit_pass(segments: Segments, store: FrameStore,
         dots = atlas_ops.empty_canvas(ch, cw, dev)
         for i in range(0, len(numbers), b):
             chunk = numbers[i:i + b]
-            imgs = padded_chunk(store, chunk, b)
-            vote_ok = validity_mask(len(chunk), b, fh, fw, dev)
-            apos = chunk_positions(positions[i:i + b], zero, b, dev)
-            dots = kblit.blit_frames(imgs, vote_ok, apos, ch, cw, dots=dots)
+            imgs = padded_chunk(store, chunk, len(chunk))
+            apos = chunk_positions(positions[i:i + b], zero, len(chunk), dev)
+            atlas_ops.blit_frames_(
+                imgs, apos, dots,
+                box=chunk_box(positions[i:i + b], zero, fh, fw))
         frag = Fragment(
             dots_dev=dots, shape=(ch, cw), zero=zero,
             frames=[FrameRef(number=no, position=p)

@@ -4,9 +4,9 @@ fdf.hpp).
 Each fragment's canvas is blended into a background (``ops.atlas.blend``);
 its stored frames come back in batches: foreground masks against the
 background (``ops.fde.extract_batch``: K1 medians, K4 components), then a
-masked vote blit (K3) into a fresh canvas of the fragment's dimensions
-(fdf.hpp:40-75).  Fragments run one after another on the store's device;
-the filtered canvases stay there.
+masked vote blit (K3, in place) into a fresh canvas of the fragment's
+dimensions (fdf.hpp:40-75).  Fragments run one after another on the
+store's device; the filtered canvases stay there.
 """
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ from typing import List
 from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.ops import atlas as atlas_ops
 from remap_tpu_torch.ops import fde as fde_ops
-from remap_tpu_torch.pipeline.collect import chunk_positions, padded_chunk
+from remap_tpu_torch.pipeline.collect import (
+    chunk_box, chunk_positions, padded_chunk,
+)
 from remap_tpu_torch.pipeline.state import Fragment, FrameRef
 
 
@@ -49,9 +51,11 @@ def filter_fragments(fragments: List[Fragment],
                 area_divisor=cfg.fde_area_divisor,
                 compute_medians=recompute,
             )
-            fg[n_real:] = 1     # padding frames vote nowhere
-            out = atlas_ops.blit_frames(imgs, apos, ch, cw, masks=fg,
-                                        dots=out)
+            # the leading n_real frames (views): padding frames vote nowhere
+            atlas_ops.blit_frames_(
+                imgs[:n_real], apos[:n_real], out, masks=fg[:n_real],
+                box=chunk_box(poss[i:i + b], frag.zero, store.height,
+                              store.width))
         results.append(Fragment(
             dots_dev=out, shape=(ch, cw), zero=frag.zero,
             frames=[FrameRef(number=n, position=p)

@@ -95,23 +95,118 @@ def test_tables_kernel_matches_plain(cuda_device):
     assert bool(got.overflow.all())
 
 
-def test_blit_kernel_matches_plain(cuda_device):
-    """K3 equals the plain blit at the streaming shapes (256 NES frames
-    into the 496x512 window), onto votes near the uint16 wrap."""
+def _walk(rng, f, lo, hi):
+    """``f`` clustered positions: a +-3 px walk (the bench clip's camera)
+    from the middle of ``[lo, hi]`` per axis, clipped to it."""
+    steps = rng.integers(-3, 4, (f, 2))
+    steps[0] = 0
+    mid = (np.asarray(lo) + np.asarray(hi)) // 2
+    return np.clip(mid + np.cumsum(steps, 0), lo, hi).astype(np.int32)
+
+
+def _blit_case(case, device):
+    """(frames, vote plane or None, polarity, positions, dots) of a K3
+    case; dots near the uint16 wrap."""
     rng = np.random.default_rng(3)
-    f, (h, w), ah, aw = 256, NES, 496, 512
-    frames = _random_frames(cuda_device, f, h, w, seed=4)
-    ok = to_torch((rng.random((f, h, w)) < 0.9).astype(np.uint8), cuda_device)
-    pos = to_torch(np.stack([rng.integers(0, aw - w + 1, f),
-                             rng.integers(0, ah - h + 1, f)],
-                            -1).astype(np.int32), cuda_device)
-    dots = to_torch(rng.integers(65400, 65536, (16,) + kblit.padded_dims(
-        ah, aw)).astype(np.int32), cuda_device)
-    got = kblit.blit_frames(frames, ok, pos, ah, aw, dots=dots)
-    want = kblit.blit_frames_plain(frames, ok, pos, ah, aw, dots=dots)
+    f, (h, w), (ah, aw) = 256, NES, (496, 512)
+    if case == "one_frame":
+        f = 1
+    elif case == "ragged":
+        f = 37          # no multiple of the kernel's 8-frame unroll
+    elif case == "chunks":
+        f = 1500        # more than one 1024-frame pass per block
+    elif case == "fragment":
+        ah, aw = 1992, 3584
+    ahp, awp = kblit.padded_dims(ah, aw)
+    frames = _random_frames(device, f, h, w, seed=4)
+    if case in ("random", "polarity_zero", "no_plane", "one_frame"):
+        pos = np.stack([rng.integers(0, aw - w + 1, f),
+                        rng.integers(0, ah - h + 1, f)], -1)
+    elif case == "repeated":
+        pos = np.repeat(_walk(rng, 8, (0, 0), (aw - w, ah - h)), 32, axis=0)
+    elif case == "fragment":
+        pos = _walk(rng, f, (0, 0), (awp - w, ahp - h))
+    else:
+        pos = _walk(rng, f, (0, 0), (aw - w, ah - h))
+    ok = to_torch((rng.random((f, h, w)) < 0.9).astype(np.uint8), device)
+    plane, polarity = ok, "nonzero"
+    if case == "polarity_zero":
+        polarity = "zero"
+    elif case == "no_plane":
+        plane = None
+    gen = torch.Generator(device=device).manual_seed(5)
+    dots = torch.randint(65400, 65536, (16, ahp, awp), generator=gen,
+                         dtype=torch.int32, device=device)
+    pos = to_torch(pos.astype(np.int32), device)
+    return frames, plane, polarity, pos, dots
+
+
+@pytest.mark.parametrize("case", ["random", "clustered", "polarity_zero",
+                                  "no_plane", "one_frame", "ragged",
+                                  "chunks", "repeated", "fragment"])
+def test_blit_kernel_matches_plain(cuda_device, case):
+    """K3 in place equals the plain in-place blit at the streaming shapes
+    (NES frames into the 496x512 window) with random and clustered
+    positions, for each vote polarity and no plane, for 1, 37 and 1500
+    frames, repeated positions, and on a 1992x3584 fragment canvas
+    ([16, 2008, 3840]); onto votes near the uint16 wrap, with the grid
+    over the whole canvas and over the frames' box alike."""
+    frames, plane, polarity, pos, dots = _blit_case(case, cuda_device)
+    _, h, w = frames.shape
+    want = kblit.blit_frames_plain_(frames, pos, dots.clone(), vote=plane,
+                                    vote_polarity=polarity)
+    box = kblit.frames_box(pos.cpu().numpy(), h, w)
+    for hint in (None, box):
+        before = kblit.blit_frames_cuda.launches
+        got = dots.clone()
+        torch.cuda.set_sync_debug_mode("error")   # no host sync
+        try:
+            kblit.blit_frames_(frames, pos, got, vote=plane,
+                               vote_polarity=polarity, box=hint)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert kblit.blit_frames_cuda.launches == before + 1
+        assert torch.equal(got, want), hint
+    assert bool((want < dots).any())   # some counters wrapped
+
+
+def test_blit_kernel_odd_widths_and_offsets(cuda_device):
+    """K3's byte-wise path: frames 37 px wide, and frames whose storage
+    starts at an odd address, equal the plain version."""
+    rng = np.random.default_rng(6)
+    f, h, w = 9, 20, 37
+    raw = torch.as_tensor(rng.integers(0, 16, f * h * w + 1, dtype=np.uint8),
+                          device=cuda_device)
+    pos = to_torch(rng.integers(0, 60, (f, 2)).astype(np.int32), cuda_device)
+    vote = to_torch((rng.random((f, h, w)) < 0.7).astype(np.uint8),
+                    cuda_device)
+    for frames in (raw[:-1].view(f, h, w), raw[1:].view(f, h, w)):
+        dots = torch.zeros((16,) + kblit.padded_dims(90, 100),
+                           dtype=torch.int32, device=cuda_device)
+        want = kblit.blit_frames_plain_(frames, pos, dots.clone(), vote=vote)
+        kblit.blit_frames_(frames, pos, dots, vote=vote)
+        torch.cuda.synchronize()
+        assert torch.equal(dots, want)
+
+
+def test_blit_kernel_keeps_bits_outside_the_votes(cuda_device):
+    """Bins that take no vote keep their bits, even values no vote add
+    could leave; the functional form leaves its input as it was."""
+    rng = np.random.default_rng(8)
+    f, (h, w) = 16, NES
+    frames = _random_frames(cuda_device, f, h, w, seed=9)
+    pos = to_torch(_walk(rng, f, (0, 0), (256, 256)), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    dots = torch.randint(-(1 << 31), (1 << 31) - 1,
+                         (16,) + kblit.padded_dims(496, 512), generator=gen,
+                         dtype=torch.int32, device=cuda_device)
+    start = dots.clone()
+    got = kblit.blit_frames(frames, None, pos, 496, 512, dots=dots)
+    want = kblit.blit_frames_plain_(frames, pos, start.clone())
     torch.cuda.synchronize()
+    assert torch.equal(dots, start)
     assert torch.equal(got, want)
-    assert bool((got < dots).any())   # some counters wrapped
 
 
 def test_stream_cuda_matches_cpu(cuda_device):
