@@ -27,9 +27,13 @@ Phases, each of which raises on failure (non-zero exit):
    it was: 256 NES frames at random positions with a vote_ok plane (both
    polarities), at the step's own positions for the first batch (no
    plane, as the step blits), and at those positions inside a 1992x3584
-   fragment canvas [16, 2008, 3840]; each timed with its grid over the
-   frames' box and over the whole canvas, beside the plain version and
-   the library accumulation.
+   fragment canvas [16, 2008, 3840] (no plane, and a foreground-mask
+   plane read with polarity "zero").  Timed as the main path launches
+   it (the step: no plane, the grid over its 496x512 window; the
+   fragment: the mask plane, the grid over the frames' box, as
+   filter_fragments blits), with the grid over the frames' own box
+   logged beside, and beside the plain version and the library
+   accumulation.
 4. cpu: the first 4 batches again on CPU tensors (the plain versions);
    offsets, matched, flags, strayed, anchor, position and the atlas must
    equal the card's.
@@ -58,8 +62,10 @@ launches on the main path that runs it, its largest difference from the
 plain version, its time, the plain version's, its bound (the bytes it must
 move, each input read once and each output written once, over the
 H100's 3.35 TB/s; every kernel here is integer work below that line;
-K3's: the frames plus the frames' box of 16 bins in and out, as it
-updates the canvas in place), share = bound / time, and library_ms: for
+K3's: the frames, its vote plane if any, and the bins that take a vote
+read and written, as it updates the canvas in place; the frames' box of
+16 bins in and out and the old design's whole canvas are logged beside
+it), share = bound / time, and library_ms: for
 K3 (blit, and blit_fragment, the same kernel on the fragment canvas) one
 index_put_(accumulate=True) of the votes on precomputed bins, null for
 the others, since no single PyTorch call computes them.  The last line
@@ -256,8 +262,10 @@ def blit_phase(dev, frames_np, offsets, matched):
     256 NES frames at random positions with a vote_ok plane (both
     polarities), at the streaming step's own positions for the bench
     clip (no plane: the step's blit), and at the same positions inside a
-    1992x3584 fragment canvas; then times and bounds.  Returns the step's
-    and the fragment's entries (without launch counts)."""
+    1992x3584 fragment canvas (no plane, and a mask plane as the
+    foreground blits); then times and bounds, each as the main path
+    launches it.  Returns the step's and the fragment's entries (without
+    launch counts)."""
     import torch
 
     from remap_tpu_torch.ops.kernels import blit
@@ -288,17 +296,26 @@ def blit_phase(dev, frames_np, offsets, matched):
             raise AssertionError(f"{what}: bins outside the box changed")
         return err, pos, box, dots
 
-    def measure(what, pos, box, dots):
-        """Kernel, plain and library times, in place on one canvas, and
-        the bounds: frames plus the box's bins in and out (bound_ms), the
-        voted bins alone, and the whole canvas in and out (the old
-        design's)."""
+    def measure(what, pos, box, dots, caller_box, vote=None,
+                polarity="nonzero"):
+        """Kernel, plain and library times, in place on one canvas, the
+        kernel's grid over ``caller_box`` (the box its caller on the main
+        path passes) and, logged beside it, over the frames' own ``box``;
+        and the bounds: the function's bytes (frames, the plane if any,
+        and the bins that take a vote, in and out: bound_ms), beside the
+        frames' box of 16 bins in and out, and the old design's whole
+        canvas in and out with its flag plane."""
         canvas = dots.clone()
-        ms = time_ms(lambda: blit.blit_frames_(images, pos, canvas, box=box),
-                     50)
-        grid_ms = time_ms(lambda: blit.blit_frames_(images, pos, canvas), 50)
-        plain = time_ms(lambda: blit.blit_frames_plain_(images, pos, canvas),
-                        3)
+
+        def kernel(grid):
+            return lambda: blit.blit_frames_(images, pos, canvas, vote=vote,
+                                             vote_polarity=polarity,
+                                             box=grid)
+
+        ms = time_ms(kernel(caller_box), 50)
+        tight_ms = time_ms(kernel(box), 50)
+        plain = time_ms(lambda: blit.blit_frames_plain_(
+            images, pos, canvas, vote=vote, vote_polarity=polarity), 3)
         # the accumulation alone, given the bins (their computation is
         # excluded): one index_put_ with accumulate=True
         _, ahp, awp = dots.shape
@@ -306,32 +323,41 @@ def blit_phase(dev, frames_np, offsets, matched):
         ys = p64[:, 1, None, None] + torch.arange(H, device=dev)[None, :, None]
         xs = p64[:, 0, None, None] + torch.arange(W, device=dev)[None, None, :]
         colour = images.to(torch.int64)
-        bins = (colour * (ahp * awp) + ys * awp + xs)[colour < blit.DEPTH]
+        ok = colour < blit.DEPTH
+        if vote is not None:
+            ok &= (vote != 0) if polarity == "nonzero" else (vote == 0)
+        bins = (colour * (ahp * awp) + ys * awp + xs)[ok]
         ones = torch.ones_like(bins, dtype=torch.int32)
         flat = canvas.view(-1)
         library = time_ms(lambda: flat.index_put_((bins,), ones,
                                                   accumulate=True), 50)
         x_lo, y_lo, x_hi, y_hi = box
-        frame_bytes = images.numel()
-        bound = (frame_bytes + 2 * 4 * blit.DEPTH * (
-            x_hi - x_lo) * (y_hi - y_lo)) / HBM_BYTES_PER_S * 1e3
+        read = images.numel() + (0 if vote is None else vote.numel())
         voted = int(torch.unique(bins).numel())
-        voted_bound = (frame_bytes + 2 * 4 * voted) / HBM_BYTES_PER_S * 1e3
-        whole = (frame_bytes + 2 * dots.numel() * 4) / HBM_BYTES_PER_S * 1e3
-        log(f"{what}: kernel {ms:.4f} ms (grid over the box; over the whole "
-            f"canvas {grid_ms:.4f}), plain {plain:.4f} ms, library "
-            f"index_put_(accumulate=True) on precomputed bins (their "
-            f"computation excluded) {library:.4f} ms; bound {bound:.4f} ms "
-            f"(frames + box {x_hi - x_lo}x{y_hi - y_lo} x 16 bins in and "
-            f"out), voted bins only {voted_bound:.4f} ms ({voted} bins), "
-            f"whole canvas {tuple(dots.shape)} in and out {whole:.4f} ms "
-            "(the old design's bound)")
+        bound = (read + 2 * 4 * voted) / HBM_BYTES_PER_S * 1e3
+        box_bound = (read + 2 * 4 * blit.DEPTH * (x_hi - x_lo) * (
+            y_hi - y_lo)) / HBM_BYTES_PER_S * 1e3
+        whole = (2 * images.numel() + 2 * dots.numel() * 4
+                 ) / HBM_BYTES_PER_S * 1e3
+        log(f"{what}: kernel {ms:.4f} ms (grid over the caller's box "
+            f"{caller_box}; over the frames' box {box}: {tight_ms:.4f}), "
+            f"plain {plain:.4f} ms, library index_put_(accumulate=True) on "
+            f"precomputed bins (their computation excluded) {library:.4f} "
+            f"ms; bound {bound:.4f} ms (frames"
+            f"{'' if vote is None else ' + plane'} + the {voted} bins that "
+            f"take a vote, in and out), frames' box "
+            f"{x_hi - x_lo}x{y_hi - y_lo} x 16 bins in and out "
+            f"{box_bound:.4f} ms, the old design's (frames + flags + whole "
+            f"canvas {tuple(dots.shape)} in and out) {whole:.4f} ms")
         return ms, plain, bound, library
 
     pos_r = np.stack([rng.integers(0, aw - W + 1, BATCH),
                       rng.integers(0, ah - H + 1, BATCH)], -1).astype(np.int32)
     vote_ok = torch.as_tensor((rng.random((BATCH, H, W)) < 0.9)
                               .astype(np.uint8), device=dev)
+    # a foreground-mask plane: 5% of the pixels masked (no vote)
+    masks = torch.as_tensor((rng.random((BATCH, H, W)) < 0.05)
+                            .astype(np.uint8), device=dev)
     err = max(check("blit random", pos_r, (ah, aw), vote=vote_ok)[0],
               check("blit random masks", pos_r, (ah, aw), vote=vote_ok,
                     polarity="zero")[0])
@@ -339,18 +365,24 @@ def blit_phase(dev, frames_np, offsets, matched):
                               torch.as_tensor(matched)[None])[0].numpy()
     pos_s = np.clip(seg + ATLAS_PAD, 0, [aw - W, ah - H]).astype(np.int32)
     err_s, pos, box, dots = check("blit step", pos_s, (ah, aw))
-    err_f, pos_f, box_f, dots_f = check(
-        "blit fragment", pos_s + np.array([1664, 880], np.int32),
-        (1992, 3584))
+    pos_f_np = pos_s + np.array([1664, 880], np.int32)
+    err_f, pos_f, box_f, dots_f = check("blit fragment", pos_f_np,
+                                        (1992, 3584))
+    err_f = max(err_f, check("blit fragment masks", pos_f_np, (1992, 3584),
+                             vote=masks, polarity="zero")[0])
     log(f"blit {BATCH} frames: random positions (vote_ok and masks), the "
         f"step's positions, and the step's positions in a 1992x3584 "
-        f"fragment canvas {tuple(dots_f.shape)}: equal (exact, tolerance 0; "
-        "counters wrap; bins outside the box unchanged)")
+        f"fragment canvas {tuple(dots_f.shape)} (no plane, and masks): "
+        "equal (exact, tolerance 0; counters wrap; bins outside the box "
+        "unchanged)")
+    # as the main path launches it: the step with its window as the box,
+    # the foreground's masked blit with the chunk's own box
     step = measure(f"blit step positions into {tuple(dots.shape)}", pos, box,
-                   dots)
-    frag = measure(f"blit fragment {tuple(dots_f.shape)}", pos_f, box_f,
-                   dots_f)
-    log(f"blit fragment / step time: {frag[0] / step[0]:.3f}")
+                   dots, (0, 0, aw, ah))
+    frag = measure(f"blit fragment {tuple(dots_f.shape)}, masks", pos_f,
+                   box_f, dots_f, box_f, vote=masks, polarity="zero")
+    log(f"blit fragment / step time, as the main path launches them: "
+        f"{frag[0] / step[0]:.3f}")
     return (kernel_entry("blit", "remap_tpu/ops/pallas/blit.py:130",
                          "blit.cu", max(err, err_s), *step),
             kernel_entry("blit_fragment", "remap_tpu/ops/pallas/blit.py:130",

@@ -23,8 +23,10 @@
 //   value (its aligned word, its right neighbour's by a warp shuffle, and
 //   a funnel shift; bytes outside the frame masked to "no vote"; no
 //   branch, so a group's loads are in flight together), the caller's vote
-//   plane the same way, and adds each pixel's
-//   vote with one shared atomic (an add of 0 where it does not vote).  The
+//   plane the same way, folds the plane into the colours (a barred pixel
+//   becomes colour 0xFF, as the TPU kernel's colour 16), and adds each
+//   pixel's vote with one shared atomic (an add of 0 where it does not
+//   vote).  The
 //   listing stores each frame's row offset, so the loop does no 64-bit
 //   multiply.  The wrapper caps F below 2^16, so a 16-bit field never
 //   carries into its neighbour.
@@ -48,7 +50,8 @@
 // slower).  Bound on this card: the per-vote work of the load and count
 // path (instruction issue and shared atomics; its time grows with the
 // votes, PERF.md), not the bytes (frames and vote plane read once, the
-// covered bins in and out), which would take a quarter of its time.
+// bins that take a vote in and out), which would take a sixth of its time
+// (a quarter with a mask plane).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -110,18 +113,24 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ row,
   return v;
 }
 
-// One shared atomic per pixel of a lane's 4: its colour's 16-bit field,
-// or 0 into pair 0 where the pixel does not vote (no branch).  POL: 0
-// every pixel votes, 1 votes where the plane is != 0, 2 where it is == 0.
+// The 4 colours with each pixel that the vote plane bars set to 0xFF, a
+// colour that never votes (SWAR over the 4 bytes).  POL: 0 every pixel
+// votes, 1 votes where the plane is != 0, 2 where it is == 0.
 template <int POL>
-__device__ __forceinline__ void count4(uint32_t* lane_hist, uint32_t colours,
-                                       uint32_t plane) {
+__device__ __forceinline__ uint32_t apply_plane(uint32_t colours, uint32_t plane) {
+  if (POL == 0) return colours;
+  const uint32_t hi = (((plane & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | plane) & 0x80808080u;
+  const uint32_t nonzero = (hi >> 7) * 0xFFu;  // 0xFF where the plane's byte != 0
+  return colours | (POL == 1 ? ~nonzero : nonzero);
+}
+
+// One shared atomic per pixel of a lane's 4: its colour's 16-bit field,
+// or 0 into pair 0 where the pixel does not vote (no branch).
+__device__ __forceinline__ void count4(uint32_t* lane_hist, uint32_t colours) {
 #pragma unroll
   for (int k = 0; k < PX; ++k) {
     const uint32_t v = (colours >> (8 * k)) & 0xFFu;
-    const uint32_t p = (plane >> (8 * k)) & 0xFFu;
-    const bool votes = v < DEPTH && (POL == 0 || (POL == 1 ? p != 0 : p == 0));
-    const uint32_t inc = votes ? 1u << (16 * (v & 1)) : 0u;
+    const uint32_t inc = v < DEPTH ? 1u << (16 * (v & 1)) : 0u;
     atomicAdd(lane_hist + ((v >> 1) & (PAIRS - 1)) * (PX * TX) + k * TX, inc);
   }
 }
@@ -192,7 +201,7 @@ blit_kernel(const uint8_t* __restrict__ frames, const uint8_t* __restrict__ vote
         vw[u] = POL != 0 ? load4<ALIGNED>(vote + row, fx0, W, lane) : 0u;
       }
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) count4<POL>(lane_hist, cw[u], vw[u]);
+      for (int u = 0; u < UNROLL; ++u) count4(lane_hist, apply_plane<POL>(cw[u], vw[u]));
     }
   }
   if (listed == 0) return;  // block-uniform: no frame meets the tile

@@ -43,29 +43,6 @@ def to_host(dots: torch.Tensor, h: int, w: int) -> np.ndarray:
     return dots[:, :h, :w].permute(1, 2, 0).cpu().numpy().astype(np.uint16)
 
 
-def blit_frames_(frames: torch.Tensor, positions: torch.Tensor,
-                 dots: torch.Tensor, masks: torch.Tensor | None = None,
-                 box=None) -> torch.Tensor:
-    """Vote every frame's colours into the canvas ``dots`` in place
-    (fgm.hpp:71-97): frames ``[F, H, W]`` uint8 at positions ``[F, 2]``
-    int32 (x, y), inside the canvas; a pixel votes where its mask is 0
-    (every pixel without masks).  ``box``: an optional host bound of the
-    frames' rectangles (``kernels.blit.frames_box``) that sizes K3's
-    grid.  K3 on CUDA tensors, its plain version on CPU tensors."""
-    return kblit.blit_frames_(frames, positions, dots, vote=masks,
-                              vote_polarity="zero", box=box)
-
-
-def blit_frames(frames: torch.Tensor, positions: torch.Tensor, atlas_h: int,
-                atlas_w: int, masks: torch.Tensor | None = None,
-                dots: torch.Tensor | None = None) -> torch.Tensor:
-    """The functional form of :func:`blit_frames_`: a new canvas, ``dots``
-    (a zero ``atlas_h x atlas_w`` canvas without one) plus the votes."""
-    out = (empty_canvas(atlas_h, atlas_w, frames.device) if dots is None
-           else dots.clone())
-    return blit_frames_(frames, positions, out, masks=masks)
-
-
 def blend(dots: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``[16, H, W]`` votes -> (image, mask) ``[H, W]`` uint8: the colour
     with the most votes, the first of equal maxima winning as

@@ -85,9 +85,8 @@ def blit_pass(segments: Segments, store: FrameStore,
             chunk = numbers[i:i + b]
             imgs = padded_chunk(store, chunk, len(chunk))
             apos = chunk_positions(positions[i:i + b], zero, len(chunk), dev)
-            atlas_ops.blit_frames_(
-                imgs, apos, dots,
-                box=chunk_box(positions[i:i + b], zero, fh, fw))
+            kblit.blit_frames_(imgs, apos, dots,
+                               box=chunk_box(positions[i:i + b], zero, fh, fw))
         frag = Fragment(
             dots_dev=dots, shape=(ch, cw), zero=zero,
             frames=[FrameRef(number=no, position=p)

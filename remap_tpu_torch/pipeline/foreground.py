@@ -16,6 +16,7 @@ from typing import List
 from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.ops import atlas as atlas_ops
 from remap_tpu_torch.ops import fde as fde_ops
+from remap_tpu_torch.ops.kernels import blit as kblit
 from remap_tpu_torch.pipeline.collect import (
     chunk_box, chunk_positions, padded_chunk,
 )
@@ -51,9 +52,11 @@ def filter_fragments(fragments: List[Fragment],
                 area_divisor=cfg.fde_area_divisor,
                 compute_medians=recompute,
             )
-            # the leading n_real frames (views): padding frames vote nowhere
-            atlas_ops.blit_frames_(
-                imgs[:n_real], apos[:n_real], out, masks=fg[:n_real],
+            # the leading n_real frames (views): padding frames vote
+            # nowhere; a pixel votes where its mask is 0 (fgm.hpp:71-97)
+            kblit.blit_frames_(
+                imgs[:n_real], apos[:n_real], out, vote=fg[:n_real],
+                vote_polarity="zero",
                 box=chunk_box(poss[i:i + b], frag.zero, store.height,
                               store.width))
         results.append(Fragment(

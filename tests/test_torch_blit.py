@@ -164,9 +164,10 @@ def test_masked_sliced_chunk_matches_padded_masks():
         jnp.asarray(frames), jnp.asarray(pos), ah, aw,
         masks=jnp.asarray(masks), dots=jnp.asarray(dots)))
     canvas = tatlas.from_host(dots, "cpu")
-    tatlas.blit_frames_(to_torch(frames)[:n_real], to_torch(pos)[:n_real],
-                        canvas, masks=to_torch(masks)[:n_real],
-                        box=tblit.frames_box(pos[:n_real], h, w))
+    tblit.blit_frames_(to_torch(frames)[:n_real], to_torch(pos)[:n_real],
+                       canvas, vote=to_torch(masks)[:n_real],
+                       vote_polarity="zero",
+                       box=tblit.frames_box(pos[:n_real], h, w))
     np.testing.assert_array_equal(tatlas.to_host(canvas, ah, aw), want)
 
 
@@ -183,8 +184,8 @@ def test_blit_large_canvas_matches_jax():
     want = np.asarray(jatlas.blit_frames(
         jnp.asarray(frames), jnp.asarray(pos), ah, aw,
         masks=jnp.asarray(masks)))
-    got = tatlas.blit_frames(to_torch(frames), to_torch(pos), ah, aw,
-                             masks=to_torch(masks))
+    got = tblit.blit_frames(to_torch(frames), to_torch(masks), to_torch(pos),
+                            ah, aw, vote_polarity="zero")
     np.testing.assert_array_equal(tatlas.to_host(got, ah, aw), want)
 
 

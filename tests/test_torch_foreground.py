@@ -17,6 +17,7 @@ from remap_tpu.pipeline import state as jstate
 from remap_tpu.utils import testing
 from remap_tpu_torch import convert
 from remap_tpu_torch.ops import atlas as tatlas
+from remap_tpu_torch.ops.kernels import blit as kblit
 from remap_tpu_torch.pipeline import collect as tcollect
 from remap_tpu_torch.pipeline import foreground as tfg
 from remap_tpu_torch.pipeline import state as tstate
@@ -166,9 +167,9 @@ def test_masked_blit_matches_jax_near_wrap():
     want = np.asarray(jatlas.blit_frames(
         jnp.asarray(frames), jnp.asarray(pos), ah, aw,
         masks=jnp.asarray(masks), dots=jnp.asarray(dots)))
-    got = tatlas.blit_frames(to_torch(frames), to_torch(pos), ah, aw,
-                             masks=to_torch(masks),
-                             dots=tatlas.from_host(dots, "cpu"))
+    got = kblit.blit_frames(to_torch(frames), to_torch(masks), to_torch(pos),
+                            ah, aw, dots=tatlas.from_host(dots, "cpu"),
+                            vote_polarity="zero")
     np.testing.assert_array_equal(tatlas.to_host(got, ah, aw), want)
     assert (want < dots).any()      # some counters wrapped
 
