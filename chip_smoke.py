@@ -74,6 +74,26 @@ Phases, each of which raises on failure (non-zero exit):
    not a multiple of 4), K2 (at every capacity the ladder used), K3 (as
    the blit pass launches it) and K4a (on a window heatmap) against
    their plain versions.
+9. map build: the same session through the whole pipeline,
+   pipeline.builder.build_from_frames (window -> crop -> collect -> splice
+   -> foreground -> clean) at PipelineConfig(), with stage callbacks that
+   synchronise the card, counts zeroed just before and read just after.
+   Collect must give 3 fragments and splice 2: the world's frames 0-999
+   and 1001-2047, whose records equal the camera path after one shift,
+   and the noise frame alone; 2 maps, the world map's interior (the 6-px
+   ring and one more right column excluded, where the canvas holds
+   votes) equal to the session's world at 99% of its pixels or more,
+   aligned by frame record 0; a 64-frame session around the noise frame
+   (in batches of 64) built on the card and on the CPU with byte-equal
+   maps, equal spliced canvases and frame records; io.png.write_map's
+   files decoding (zlib alone) to palette.native_to_rgb of the maps;
+   every kernel launched.
+   Printed: each stage's ms, frames/s and peak memory, every splice match
+   (multiplicity, K, slot or dense, ms, peak memory), every snippet's
+   keypoints and capacity, and K2's share of one merge's device work
+   (torch.profiler); K1 and K2 at the merged world canvas's snippet shape
+   (1x1 layout, K2 at the count-sized capacity, by both of its routes)
+   against their plain versions.
 
 The line before the last is a JSON object of the kernels: for each, its
 launches on the main path that runs it, its largest difference from the
@@ -88,8 +108,9 @@ K3 (blit, blit_fragment and blit_collect, the same kernel on the
 fragment canvas and in the blit pass) one index_put_(accumulate=True)
 of the votes on precomputed bins, null for the others, since no single
 PyTorch call computes them.  The collect path's entries (extract_collect,
-tables_collect, blit_collect, cc_labels_window) carry its launches.  The
-last line
+tables_collect, blit_collect, cc_labels_window) carry its launches, and
+the map build's (extract_splice, tables_splice: K1 and K2 at the snippet
+shape) the splice stage's.  The last line
 is {"ok": true,
 "device": {...}}.  Without a CUDA device the script exits non-zero and
 prints no result.
@@ -119,6 +140,7 @@ SESSION = 2048             # collect phase: frames of the C64 session
 NOISE_AT = 1000            # its noise frame (a fragment break)
 CPU_FRAMES = 256           # its frames repeated on the CPU
 REPEAT = 256               # frames of the repetitive-texture clip
+SHORT = 64                 # map phase: frames built on the card and the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SPIN_HZ = 2.0e9            # spin cycles a second, above the H100's clock
 
@@ -1398,6 +1420,415 @@ def collect_phase(dev, counters: dict, smi: str):
     return list(entries.values())
 
 
+def session_world(seed: int = 12) -> np.ndarray:
+    """The world :func:`session_clip` renders (its generator's first draw)."""
+    from remap_tpu_torch.config import PipelineConfig
+    from remap_tpu_torch.utils import clips
+
+    cfg = PipelineConfig()
+    return clips.make_world(cfg.screen_height + 400, cfg.screen_width + 400,
+                            np.random.default_rng(seed))
+
+
+def decode_png(path: str) -> np.ndarray:
+    """An 8-bit RGB PNG as ``[H, W, 3]`` uint8 with zlib alone: the IDAT
+    chunks joined and inflated, each scanline's filter undone."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    i, idat, w, h = 8, b"", 0, 0
+    while i < len(data):
+        n, tag = struct.unpack(">I4s", data[i:i + 8])
+        body = data[i + 8:i + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
+                                                                body)
+            if (depth, ctype, interlace) != (8, 2, 0):
+                raise AssertionError(f"{path}: not 8-bit RGB")
+        elif tag == b"IDAT":
+            idat += body
+        i += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    out = np.zeros((h, 3 * w), np.int64)
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:].astype(np.int64)
+        up = out[y - 1] if y else np.zeros(3 * w, np.int64)
+        if kind in (0, 2):
+            out[y] = (line + (up if kind == 2 else 0)) & 255
+            continue
+        for x in range(3 * w):      # sub, average, paeth: left to right
+            a = out[y, x - 3] if x >= 3 else 0
+            b, c = up[x], (up[x - 3] if x >= 3 else 0)
+            if kind == 1:
+                p = a
+            elif kind == 3:
+                p = (a + b) // 2
+            else:
+                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                p = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[y, x] = (line[x] + p) & 255
+    return out.reshape(h, w, 3).astype(np.uint8)
+
+
+@contextlib.contextmanager
+def recorded_splice(dev, rungs: list, snippets: list):
+    """Record every cellular match splice runs (multiplicity, table rows K,
+    dense or slot, wall ms, peak device memory) in ``rungs`` and every
+    snippet it extracts (canvas, bucketed canvas, keypoints, capacity) in
+    ``snippets``.  Each match is timed between two synchronisations."""
+    from remap_tpu_torch.pipeline import splice
+
+    real_match = splice.splice_ops.match_fragments
+    real_finalize = splice._snippet_finalize
+
+    def match(*args, **kwargs):
+        sync(dev)
+        before = peak_mb(dev)
+        reset_peak(dev)
+        t0 = time.perf_counter()
+        res = real_match(*args, **kwargs)
+        bool(res.overflow)
+        ms = (time.perf_counter() - t0) * 1e3
+        mult = kwargs["multiplicity"]
+        rungs.append({"multiplicity": mult, "k": int(args[0].shape[0]),
+                      "form": "dense" if mult == 0 else "slot", "ms": ms,
+                      "peak_mb": peak_mb(dev), "before_mb": before,
+                      "overflow": bool(res.overflow)})
+        return res
+
+    def finalize(frag, pend, cfg):
+        snip = real_finalize(frag, pend, cfg)
+        snippets.append({"canvas": frag.shape,
+                         "bucket": tuple(pend[1].shape[1:]),
+                         "keypoints": int(pend[3]),
+                         "capacity": int(snip.codes.shape[0])})
+        return snip
+
+    splice.splice_ops.match_fragments = match
+    splice._snippet_finalize = finalize
+    try:
+        yield
+    finally:
+        splice.splice_ops.match_fragments = real_match
+        splice._snippet_finalize = real_finalize
+
+
+def timed_build(dev, frames, cfg, counters: dict):
+    """builder.build_from_frames on ``dev`` with stage callbacks that
+    synchronise the card and record each stage's wall time, peak device
+    memory, fragment count and kernel launches so far.  Returns (result,
+    the spliced fragments, stage records, splice rungs, snippets)."""
+    from remap_tpu_torch.pipeline import builder
+
+    stages: list = []
+    spliced: list = []
+    rungs: list = []
+    snippets: list = []
+
+    class Clock(builder.Callbacks):
+        def __init__(self):
+            sync(dev)
+            reset_peak(dev)
+            self.t = time.perf_counter()
+
+        def stage(self, name, count, frames_seen=0):
+            sync(dev)
+            now = time.perf_counter()
+            # the matches reset the peak: their readings count too
+            mine = [r for r in rungs if r.setdefault("stage", name) == name]
+            peaks = [p for p in [peak_mb(dev)] + [
+                r[k] for r in mine for k in ("before_mb", "peak_mb")]
+                if p is not None]
+            stages.append({
+                "stage": name, "ms": (now - self.t) * 1e3, "count": count,
+                "frames": frames_seen,
+                "peak_mb": max(peaks) if peaks else None,
+                "launches": {k: f.launches for k, f in counters.items()}})
+            reset_peak(dev)
+            self.t = time.perf_counter()
+
+        def on_window(self, window):
+            self.stage("window", int(window is not None))
+
+        def on_collect(self, result):
+            self.stage("collect", len(result.fragments), len(result.offsets))
+
+        def on_splice(self, fragments):
+            spliced.extend(fragments)
+            self.stage("splice", len(fragments))
+
+        def on_filter(self, fragments):
+            self.stage("foreground", len(fragments),
+                       sum(len(f.frames) for f in fragments))
+
+        def on_clean(self, images):
+            self.stage("clean", len(images))
+
+    with recorded_splice(dev, rungs, snippets):
+        res = builder.build_from_frames(frames, cfg, callbacks=Clock(),
+                                        device=dev)
+    sync(dev)
+    return res, spliced, stages, rungs, snippets
+
+
+def same_build(a, b, what: str) -> None:
+    """Two builds' maps byte for byte, spliced canvases and frame
+    records."""
+    from remap_tpu_torch import convert
+
+    (ra, sa), (rb, sb) = a, b
+    if len(ra.maps) != len(rb.maps) or any(
+            x.shape != y.shape or x.tobytes() != y.tobytes()
+            for x, y in zip(ra.maps, rb.maps)):
+        raise AssertionError(f"{what}: maps differ")
+    if len(sa) != len(sb):
+        raise AssertionError(f"{what}: {len(sa)} vs {len(sb)} spliced")
+    for fa, fb in zip(sa, sb):
+        fa, fb = convert.fragment_to_numpy(fa), convert.fragment_to_numpy(fb)
+        if fa.frames != fb.frames or not np.array_equal(fa.dots, fb.dots):
+            raise AssertionError(f"{what}: spliced fragments differ")
+
+
+def world_agreement(res, world, path, crop) -> tuple:
+    """(agreeing pixels, compared pixels) of the world fragment's map
+    against the session's world, aligned by frame record 0: the map's
+    interior (the 6-px ring and one more right column excluded), where
+    the filtered canvas holds votes and the world is in bounds."""
+    from remap_tpu_torch.pipeline import clean
+
+    i = next(k for k, f in enumerate(res.fragments)
+             if any(r.number == 0 for r in f.frames))
+    frag, image = res.fragments[i], res.maps[i]
+    left, top, _, _ = clean.margins_of_fragment(frag)
+    p0 = next(r.position for r in frag.frames if r.number == 0)
+    covered = frag.dots.any(axis=2)[top:top + image.shape[0],
+                                    left:left + image.shape[1]]
+    my, mx = np.mgrid[6:image.shape[0] - 6, 6:image.shape[1] - 7]
+    wy = my - (p0[1] - top) + path[0][1] + crop.top
+    wx = mx - (p0[0] - left) + path[0][0] + crop.left
+    inside = ((wy >= 0) & (wy < world.shape[0]) & (wx >= 0)
+              & (wx < world.shape[1]) & covered[my, mx])
+    agree = image[my, mx] == world[np.clip(wy, 0, world.shape[0] - 1),
+                                   np.clip(wx, 0, world.shape[1] - 1)]
+    return int((agree & inside).sum()), int(inside.sum())
+
+
+def merge_device_share(dev, world_frag, noise_frag, cfg) -> tuple:
+    """One merge's device work on the spliced world fragment (its snippet
+    extraction and its match against the noise fragment's snippet) under
+    torch.profiler: (device ms of every kernel, device ms of K2's
+    kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from remap_tpu_torch.pipeline import splice
+
+    def merge():
+        head = splice._extract_snippet(world_frag, cfg)
+        other = splice._extract_snippet(noise_frag, cfg)
+        splice._match(head, other, cfg)
+
+    merge()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        merge()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in device) / 1e3
+    k2 = sum(e.self_device_time_total for e in device
+             if "tables_" in e.key) / 1e3
+    return total, k2
+
+
+def splice_kernels(dev, world_frag, cfg, smi: str):
+    """K1 and K2 at the largest snippet the build extracted (the merged
+    world canvas): K1 on its blend padded to 256-multiples under the 1x1
+    layout, K2 on the interior-masked weights at the count-sized capacity,
+    each against its plain version, timed; returns their entries (without
+    launch counts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from remap_tpu_torch.core.regions import make_layout
+    from remap_tpu_torch.ops import atlas, kpe, tables
+    from remap_tpu_torch.ops.kernels import tables as ktab
+    from remap_tpu_torch.pipeline import splice
+
+    ch, cw = world_frag.shape
+    image, _ = atlas.blend(world_frag.device_dots()[:, :ch, :cw])
+    hb, wb = -(-ch // 256) * 256, -(-cw // 256) * 256
+    images = F.pad(image, (0, wb - cw, 0, hb - ch))[None].contiguous()
+    layout = make_layout(wb, hb, 1, 1, 0)
+    got = kpe.extract_dense(images, layout)
+    err1 = require_equal(got, kpe.extract_dense_plain(images, layout),
+                         f"extract splice [1,{hb},{wb}]")
+    ms1 = time_ms(lambda: kpe.extract_dense(images, layout), 20)
+    plain1 = time_ms(lambda: kpe.extract_dense_plain(images, layout), 3)
+    bound1 = bound_ms((images,), got)
+
+    _, weight, codes, total = splice._snippet_dispatch(world_frag, cfg)
+    if not torch.equal(codes, got.codes):
+        raise AssertionError("the snippet's codes differ from K1's")
+    total = int(total)
+    cap = cfg.splice_capacity
+    while cap < total:
+        cap *= 4
+    t = tables.build_tables(weight, codes, layout, cap)
+    err2 = require_equal(t, tables.build_tables_plain(weight, codes, layout,
+                                                      cap),
+                         f"tables splice [1,{hb},{wb}] K={cap}")
+    spans = tables.region_spans(layout)
+    one = ktab.build_tables_cuda(weight, codes, spans, cap, chunked=False)
+    require_equal(one, t, "tables splice, one-block route")
+    ms2 = time_ms(lambda: tables.build_tables(weight, codes, layout, cap), 20)
+    one_ms = time_ms(lambda: ktab.build_tables_cuda(weight, codes, spans, cap,
+                                                    chunked=False), 5)
+    plain2 = time_ms(lambda: tables.build_tables_plain(weight, codes, layout,
+                                                       cap), 3)
+    bound2 = bound_ms((weight, codes), t)
+    log(f"extract splice [1,{hb},{wb}] (the merged canvas {ch}x{cw}, 1x1 "
+        f"layout): equal (exact, tolerance 0); kernel {ms1:.4f} ms, plain "
+        f"{plain1:.4f} ms, bound {bound1:.4f} ms, on {smi}")
+    log(f"tables splice [1,{hb},{wb}], {total} keypoints, K={cap}: equal "
+        f"(exact, tolerance 0), both routes; chunked {ms2:.4f} ms, one "
+        f"block a region {one_ms:.4f} ms, plain {plain2:.4f} ms, bound "
+        f"{bound2:.4f} ms, on {smi}")
+    return {
+        "extract": kernel_entry("extract_splice",
+                                "remap_tpu/ops/pallas/extract.py:253",
+                                "extract.cu", err1, ms1, plain1, bound1),
+        "tables": kernel_entry("tables_splice",
+                               "remap_tpu/ops/pallas/tables.py:189",
+                               "tables.cu", err2, ms2, plain2, bound2),
+    }
+
+
+def map_phase(dev, counters: dict, smi: str):
+    """The whole map build at PipelineConfig()'s defaults on the collect
+    phase's 2048-frame session: builder.build_from_frames with stage
+    callbacks, counts zeroed just before and read just after.  Gates: 3
+    collect fragments spliced to 2 (the world's frames 0-999 and 1001-2047
+    on the camera path after one shift, the noise frame alone), 2 maps,
+    the world map's interior at least 99% the world, a short session's
+    build equal on the CPU, the PNGs decoding to the maps' colours, and
+    K1 and K2 at the splice shapes equal to their plain versions.
+    Returns the kernels' entries for the splice shapes."""
+    import tempfile
+
+    from remap_tpu_torch.config import PipelineConfig
+    from remap_tpu_torch.core import palette
+    from remap_tpu_torch.io import png
+
+    cfg = PipelineConfig()
+    frames, path = session_clip()
+    world = session_world()
+
+    # the short session on the card (also the warm-up) and on the CPU
+    lo = NOISE_AT - SHORT // 2
+    short = frames[lo:lo + SHORT]
+    # batches of SHORT frames: a batch pads to frame_batch, and the
+    # results do not depend on it (tests/test_torch_collect.py)
+    scfg = dataclasses.replace(cfg, frame_batch=SHORT)
+    card, card_spliced = timed_build(dev, short, scfg, counters)[:2]
+    t0 = time.perf_counter()
+    cpu, cpu_spliced = timed_build("cpu", short, scfg, counters)[:2]
+    cpu_s = time.perf_counter() - t0
+    same_build((card, card_spliced), (cpu, cpu_spliced),
+               f"the {SHORT}-frame session, card vs CPU")
+    log(f"map cpu: the {SHORT}-frame session around the noise frame "
+        f"(frames {lo}-{lo + SHORT - 1}, frame_batch {SHORT}) built on CPU "
+        f"tensors: {len(cpu.maps)} maps {[m.shape for m in cpu.maps]} "
+        f"byte-equal to the card's, spliced canvases and frame records "
+        f"equal ({cpu_s:.1f} s on the host of {smi})")
+
+    # the counted run
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res, spliced, stages, rungs, snippets = timed_build(dev, frames, cfg,
+                                                        counters)
+    wall_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"map phase: {name} never launched")
+    by = {s["stage"]: s for s in stages}
+    if by["collect"]["count"] != 3 or by["splice"]["count"] != 2:
+        raise AssertionError(f"map phase: {by['collect']['count']} collect "
+                             f"and {by['splice']['count']} spliced fragments")
+    world_frag = max(spliced, key=lambda f: len(f.frames))
+    noise_frag = min(spliced, key=lambda f: len(f.frames))
+    numbers = sorted(r.number for r in world_frag.frames)
+    if (numbers != [n for n in range(len(frames)) if n != NOISE_AT]
+            or [r.number for r in noise_frag.frames] != [NOISE_AT]):
+        raise AssertionError("map phase: the spliced fragments hold the "
+                             "wrong frames")
+    shifts = {(r.position[0] - path[r.number][0],
+               r.position[1] - path[r.number][1]) for r in world_frag.frames}
+    if len(shifts) != 1:
+        raise AssertionError(f"map phase: {len(shifts)} distinct shifts "
+                             "between frame records and the camera path")
+    if len(res.maps) != 2:
+        raise AssertionError(f"map phase: {len(res.maps)} maps")
+    agree, compared = world_agreement(res, world, path, res.window.crop)
+    if agree < 0.99 * compared:
+        raise AssertionError(f"map phase: the world map agrees with the "
+                             f"world at {agree} of {compared} px")
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, image in enumerate(res.maps):
+            out = f"{tmp}/out{i}.png"
+            png.write_map(out, image)
+            if not np.array_equal(decode_png(out),
+                                  palette.native_to_rgb(image)):
+                raise AssertionError(f"map phase: out{i}.png does not "
+                                     "decode to the map's colours")
+
+    n = len(frames)
+    log(f"map build: {n} frames [{frames.shape[1]}x{frames.shape[2]}] at "
+        f"PipelineConfig(), window {res.window.raw_bounds}: collect 3 -> "
+        f"splice 2 fragments (the world's {len(world_frag.frames)} frames on "
+        f"the camera path after one shift {shifts.pop()}, frame {NOISE_AT} "
+        f"alone); 2 maps {[m.shape for m in res.maps]}; the world map's "
+        f"interior equals the world at {agree} of {compared} px "
+        f"({agree / compared:.4%}); out0.png, out1.png decode to the maps' "
+        f"colours; launches {launches}")
+    prev = {k: 0 for k in counters}
+    for s in stages:
+        per_s = (f", {s['frames'] / s['ms'] * 1e3:.1f} frames/s"
+                 if s["frames"] else "")
+        peak = ("not measured" if s["peak_mb"] is None
+                else f"{s['peak_mb']:.0f} MiB")
+        delta = {k: v - prev[k] for k, v in s["launches"].items()
+                 if v - prev[k]}
+        prev = s["launches"]
+        log(f"map stage {s['stage']}: {s['ms']:.1f} ms{per_s}, peak {peak} "
+            f"allocated, launches {delta}, on {smi}")
+    log(f"map build wall: {wall_s:.3f} s ({n / wall_s:.1f} frames/s of "
+        f"wall) on {smi}")
+    for s in snippets:
+        log(f"splice snippet: canvas {s['canvas']}, bucket {s['bucket']}, "
+            f"{s['keypoints']} keypoints, capacity {s['capacity']}, on {smi}")
+    for r in rungs:
+        log(f"splice match: multiplicity {r['multiplicity']} ({r['form']}), "
+            f"K={r['k']}, overflow {r['overflow']}, {r['ms']:.1f} ms, peak "
+            + ("not measured" if r["peak_mb"] is None
+               else f"{r['peak_mb']:.0f} MiB allocated") + f", on {smi}")
+
+    total_ms, k2_ms = merge_device_share(dev, world_frag, noise_frag, cfg)
+    log(f"one merge's device work (the world snippet's extraction and its "
+        f"match against the noise snippet, torch.profiler): {total_ms:.3f} "
+        f"ms, K2 {k2_ms:.3f} ms ({k2_ms / total_ms:.3f} of it), on {smi}")
+    entries = splice_kernels(dev, world_frag, cfg, smi)
+    splice_launches = {k: by["splice"]["launches"][k]
+                       - by["collect"]["launches"][k] for k in counters}
+    entries["extract"]["launches"] = splice_launches["extract"]
+    entries["tables"]["launches"] = splice_launches["tables"]
+    return list(entries.values())
+
+
 def main() -> int:
     import torch
 
@@ -1492,6 +1923,14 @@ def main() -> int:
         "tables": tables.build_tables_cuda,
         "blit": blit.blit_frames_cuda,
         "cc_labels": cc.label_components_cuda}, smi)
+
+    kernels += map_phase(dev, {
+        "extract": extract.extract_dense_cuda,
+        "tables": tables.build_tables_cuda,
+        "blit": blit.blit_frames_cuda,
+        "cc_labels": cc.label_components_cuda,
+        "extract_medians": extract.extract_medians_cuda,
+        "cc_stats": cc.label_stats_cuda}, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

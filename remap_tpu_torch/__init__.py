@@ -2,9 +2,10 @@
 
 The port runs on one NVIDIA GPU, with a hand-written CUDA kernel
 (``csrc/*.cu``, built by ``nvcc`` for ``sm_90a`` at first use) in place of
-each Pallas kernel of the JAX package.  Two paths are ported: the
-streaming align+stitch step, and the foreground stage fed by collect's
-tail (stream step -> blit pass -> foreground filter).
+each Pallas kernel of the JAX package.  Ported: the streaming
+align+stitch step, and the whole map build as the JAX package's
+``pipeline.builder`` runs it (window scan -> crop -> collect -> splice ->
+foreground -> clean), which writes maps (``io.png``).
 
 - ``ops.kpe``       keypoint/median extraction, and its medians-only
   instantiation (kernel ``csrc/extract.cu``)
@@ -13,15 +14,22 @@ tail (stream step -> blit pass -> foreground filter).
 - ``ops.kernels.blit``  the colour-vote blit (kernel ``csrc/blit.cu``)
 - ``ops.cc``, ``ops.kernels.cc``  component labels and stats (kernel
   ``csrc/cc.cu``)
-- ``ops.fde``       foreground masks; ``ops.atlas`` fragment canvases
+- ``ops.aws``, ``ops.fde``  window heatmaps, foreground masks;
+  ``ops.atlas`` fragment canvases
+- ``ops.splice``, ``ops.arf``  the cellular fragment matcher, the
+  artifact filter (plain tensor code)
 - ``parallel.sharded``  the streaming step itself
-- ``pipeline.state``, ``pipeline.collect``, ``pipeline.foreground``  the
-  frame store and fragments, the blit pass, the foreground filter
+- ``pipeline.window``, ``pipeline.collect``, ``pipeline.stream``,
+  ``pipeline.splice``, ``pipeline.foreground``, ``pipeline.clean``,
+  ``pipeline.builder``  the stages and the orchestrator;
+  ``pipeline.state``  the frame store and fragments
+- ``io.png``        map output
 - ``convert``       carries JAX stream state, fragments and configs (as
   numpy and plain values) into the port, and numpy back
-- ``config``, ``core.regions``, ``core.palette``, ``utils.clips``  the
-  port's own copies of the JAX package's config, grid layout, palette
-  tables and clip makers
+- ``config``, ``core.regions``, ``core.palette``, ``core.geometry``,
+  ``spec.arf``, ``utils.clips``  the port's own copies of the JAX
+  package's config, grid layout, palette, rectangles, artifact-filter
+  spec and clip makers
 
 Dispatch follows the tensors: CUDA tensors run the kernels, CPU tensors
 run each kernel's plain PyTorch version.  The entry points run on the

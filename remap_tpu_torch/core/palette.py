@@ -134,3 +134,33 @@ def set_palette(blend) -> None:
     NATIVE_TO_BLEND = blend
     (NATIVE_TO_RGB, NATIVE_INTENSITY,
      ORDERED_TO_NATIVE, NATIVE_TO_ORDERED) = _derive(blend)
+
+
+def load_palette_file(path: str) -> np.ndarray:
+    """Read a palette file: 16 ``RRGGBB`` hex colors (optionally
+    ``#``-prefixed), one per line; ``;`` or ``//`` comments allowed."""
+    words = []
+    with open(path) as f:
+        for line in f:
+            line = line.split(";")[0].split("//")[0].strip()
+            if not line:
+                continue
+            words.append(int(line.lstrip("#"), 16) & 0x00FFFFFF)
+    if len(words) != 16:
+        raise ValueError(f"{path}: expected 16 colors, got {len(words)}")
+    return np.array(words, dtype=np.uint32)
+
+
+def native_to_ordered(image: np.ndarray) -> np.ndarray:
+    """Remap native codes to luminance ranks (cpl.hpp:211-213)."""
+    return NATIVE_TO_ORDERED[image]
+
+
+def ordered_to_native(image: np.ndarray) -> np.ndarray:
+    """Remap luminance ranks back to native codes (cpl.hpp:215-217)."""
+    return ORDERED_TO_NATIVE[image]
+
+
+def native_to_rgb(image: np.ndarray) -> np.ndarray:
+    """[H, W] native codes -> [H, W, 3] uint8 RGB (main.cpp:255-259)."""
+    return NATIVE_TO_RGB[image]

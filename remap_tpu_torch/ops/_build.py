@@ -62,6 +62,11 @@ SIGNATURES = {
     # out_codes, out_pos, out_valid, out_wcounts, out_overflow, stream
     "remap_tables": [_P, _P, _I, _I, _I, _P, _I, _I,
                      _P, _P, _P, _P, _P, _P],
+    # weight, codes, B, H, W, spans (host int32[R*4]), R, K, chunk, C,
+    # counts (scratch int32[B*R*C*2]), out_codes, out_pos, out_valid,
+    # out_wcounts, out_overflow, stream
+    "remap_tables_chunked": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P,
+                             _P, _P, _P, _P, _P, _P],
     # frames, vote (null for none), polarity, pos, F, H, W, dots (in
     # place), AH, AW, x_lo, y_lo, x_hi, y_hi, stream
     "remap_blit": [_P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,

@@ -1,6 +1,11 @@
 """Wrapper of the region-table kernel ``csrc/tables.cu`` (replaces the
 Pallas kernel remap_tpu/ops/pallas/tables.py::build_tables_pallas).  Its
-plain version is ``remap_tpu_torch.ops.tables.build_tables_plain``."""
+plain version is ``remap_tpu_torch.ops.tables.build_tables_plain``.
+
+Two routes, one result: a block per (frame, region) where those fill the
+card, and the chunked route (a block per ``CHUNK`` pixels of a region, a
+count launch then a scatter launch) where they do not, as for splice's
+single whole-canvas region."""
 
 from __future__ import annotations
 
@@ -13,14 +18,20 @@ from remap_tpu_torch.ops.kernels import check_input, stream_handle
 
 #: regions a layout may have (the kernel takes the spans by value)
 MAX_REGIONS = 64
+#: pixels of a region each block of the chunked route takes
+CHUNK = 4096
+#: (frames x regions) below which the chunked route runs
+CHUNKED_BELOW = 132     # the H100 SXM's SM count
 
 
 def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
-                      spans: list[tuple[int, int, int, int]], capacity: int):
+                      spans: list[tuple[int, int, int, int]], capacity: int,
+                      chunked: bool | None = None):
     """weight [B, H, W] uint8, codes [B, H, W, 4] int32 (CUDA), region
     spans (x_lo, x_hi, y_lo, y_hi) -> (codes [B, R, K, 4] int32,
     pos [B, R, K, 2] int32, valid [B, R, K] bool, wcounts [B, R, 3] int32,
-    overflow [B, R] bool)."""
+    overflow [B, R] bool).  ``chunked`` picks the route (default: chunked
+    when B * R < ``CHUNKED_BELOW``)."""
     b, h, w = weight.shape
     r, k = len(spans), capacity
     check_input(weight, "weight", torch.uint8, (None, None, None))
@@ -42,12 +53,24 @@ def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
     if b == 0:
         return out_codes, out_pos, valid, wcounts, overflow
     flat_spans = (ctypes.c_int32 * (4 * r))(*(v for s in spans for v in s))
-    rc = _build.library().remap_tables(
-        weight.data_ptr(), codes.data_ptr(), b, h, w,
-        ctypes.addressof(flat_spans), r, k,
-        out_codes.data_ptr(), out_pos.data_ptr(), valid.data_ptr(),
-        wcounts.data_ptr(), overflow.data_ptr(), stream_handle(dev),
-    )
+    if chunked is None:
+        chunked = b * r < CHUNKED_BELOW
+    outs = (out_codes.data_ptr(), out_pos.data_ptr(), valid.data_ptr(),
+            wcounts.data_ptr(), overflow.data_ptr(), stream_handle(dev))
+    if chunked:
+        most = max((x_hi - x_lo) * (y_hi - y_lo)
+                   for x_lo, x_hi, y_lo, y_hi in spans)
+        n_chunks = -(-most // CHUNK)
+        counts = torch.empty((b, r, n_chunks, 2), dtype=torch.int32,
+                             device=dev)
+        rc = _build.library().remap_tables_chunked(
+            weight.data_ptr(), codes.data_ptr(), b, h, w,
+            ctypes.addressof(flat_spans), r, k, CHUNK, n_chunks,
+            counts.data_ptr(), *outs)
+    else:
+        rc = _build.library().remap_tables(
+            weight.data_ptr(), codes.data_ptr(), b, h, w,
+            ctypes.addressof(flat_spans), r, k, *outs)
     _build.check(rc, "tables")
     build_tables_cuda.launches += 1
     return out_codes, out_pos, valid, wcounts, overflow

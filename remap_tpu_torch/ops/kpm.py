@@ -12,8 +12,8 @@ coordinate packing would overflow) and dense (``_join_dense``,
 ``multiplicity=0``) — both vote counting paths (the exact sort at
 ``vote_radius=0`` and the bounded histogram, here an exact integer
 histogram), the Borda swing bound, ``_borda_declare`` and
-``match_tables``.  ``_join_slots_scan`` (used by splice) is not ported
-yet.
+``match_tables``.  Splice's ``_join_slots_scan`` is ``_join_slots`` with
+``curr=True`` over one ``[1, K]`` row (``ops.splice``).
 
 Order contracts kept from the JAX package:
 
@@ -159,11 +159,17 @@ def _missed(rows: _SortedRows, pair: torch.Tensor):
 
 
 def _join_slots(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel,
-                multiplicity: int, coord_limit: int):
+                multiplicity: int, coord_limit: int, curr: bool = False):
     """Batched ``remap_tpu.ops.kpm._join_slots`` over ``[N, K]`` tables.
 
     Returns (dx [N, m, 2K], dy [N, m, 2K], pair [N, m, 2K],
-    n_missed [N], rows_missed [N])."""
+    n_missed [N], rows_missed [N]).  With ``curr`` it also returns what
+    ``remap_tpu.ops.kpm._join_slots_scan`` adds for splice: (curr_x
+    [N, 2K], curr_y [N, 2K], needed_m [N]), each sorted row's own
+    coordinates and the smallest multiplicity that enumerates every pair.
+    The JAX scan splits the coordinate into bit fields only to keep its
+    pack inside int32; the int64 pack here needs no split, so one
+    function serves both."""
     m = multiplicity
     lim = coord_limit + 2
     rows = _sorted_rows(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel)
@@ -183,7 +189,11 @@ def _join_slots(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel,
     pair = rows.is_curr[:, None, :] & (slot < rows.n_prev[:, None, :])
     dx = fill(spx) - spx[:, None, :]
     dy = fill(spy) - spy[:, None, :]
-    return (dx, dy, pair) + _missed(rows, pair)
+    out = (dx, dy, pair) + _missed(rows, pair)
+    if curr:
+        needed = torch.where(rows.is_curr, rows.n_prev, 0).amax(dim=1)
+        out += (spx, spy, needed)
+    return out
 
 
 def _join_rolled(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel,
@@ -215,14 +225,17 @@ def _join_rolled(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel,
         rows, pair)
 
 
-def _join_dense(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel):
+def _join_dense(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel,
+                curr: bool = False):
     """Batched ``remap_tpu.ops.kpm._join_dense``: every equal-code (prev,
     curr) pair of ``[N, K]`` tables, no multiplicity limit.  Codes compare
     word by word (no ``[N, K, K, 4]`` tensor), offsets stay int32.
 
     Returns (dx [N, K, K], dy [N, K, K], pair [N, K, K], n_missed [N],
     rows_missed [N]): axis 1 is the prev row (a curr row's partners),
-    axis 2 the curr row, as the slot-major joins; nothing is missed."""
+    axis 2 the curr row, as the slot-major joins; nothing is missed.  With
+    ``curr``, also (curr_x [N, K], curr_y [N, K], needed_m [N] = 0) as
+    :func:`_join_slots` gives them."""
     pair = p_valid[:, :, None] & c_sel[:, None, :]
     for word in range(4):
         pair &= p_codes[:, :, None, word] == c_codes[:, None, :, word]
@@ -230,7 +243,10 @@ def _join_dense(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel):
     dy = p_pos[:, :, None, 1] - c_pos[:, None, :, 1]
     zero = torch.zeros(p_codes.shape[0], dtype=torch.int64,
                        device=p_codes.device)
-    return dx, dy, pair, zero, zero
+    out = (dx, dy, pair, zero, zero)
+    if curr:
+        out += (c_pos[..., 0], c_pos[..., 1], zero)
+    return out
 
 
 def _top_by_argmax(counts: torch.Tensor, keys: torch.Tensor, picks: int):

@@ -1,2 +1,2 @@
-"""Pipeline stages on the device: the collect tail (blit pass) and the
-foreground filter."""
+"""Pipeline stages on the device: the window scan, collect, splice, the
+foreground filter and the artifact clean, and the builder that runs them."""

@@ -129,6 +129,104 @@ def test_port_palette_is_its_own(restore_palettes):
     assert not np.array_equal(jpalette.NATIVE_TO_ORDERED, before)
 
 
+@pytest.mark.parametrize("palette", ["c64", "zx"])
+def test_palette_functions_match_jax(restore_palettes, palette):
+    jpalette.set_palette(palette, _clear_caches=False)
+    tpalette.set_palette(palette)
+    image = np.random.default_rng(4).integers(0, 16, (9, 13), dtype=np.uint8)
+    for name in ("native_to_rgb", "native_to_ordered", "ordered_to_native"):
+        got = getattr(tpalette, name)(image)
+        np.testing.assert_array_equal(got, getattr(jpalette, name)(image),
+                                      err_msg=name)
+        assert got.dtype == np.uint8
+
+
+def test_load_palette_file_matches_jax(tmp_path):
+    path = tmp_path / "pal.txt"
+    words = np.random.default_rng(8).integers(0, 1 << 24, 16)
+    path.write_text("; a palette\n" + "".join(
+        f"#{w:06X} // colour {i}\n" if i % 2 else f"{w:06x}\n"
+        for i, w in enumerate(words)))
+    np.testing.assert_array_equal(tpalette.load_palette_file(str(path)),
+                                  jpalette.load_palette_file(str(path)))
+    path.write_text("ffffff\n")
+    with pytest.raises(ValueError, match="16 colors"):
+        tpalette.load_palette_file(str(path))
+
+
+def _arf_case():
+    rng = np.random.default_rng(23)
+    tile = rng.integers(0, 16, size=(5, 7), dtype=np.uint8)
+    image = np.tile(tile, (8, 7))[:37, :45].astype(np.uint8)
+    image[15:19, 10:30] = rng.integers(0, 16, (4, 20))
+    mask = (rng.random(image.shape) > 0.02).astype(np.uint8)
+    dots = rng.integers(0, 4, image.shape + (16,)).astype(np.uint16)
+    dots[mask == 0] = 0
+    return image * mask, mask, dots
+
+
+def test_spec_arf_copy_matches_jax():
+    from remap_tpu.spec import arf as jspec
+    from remap_tpu_torch.spec import arf as tspec
+
+    image, mask, dots = _arf_case()
+    for axis in (0, 1):
+        np.testing.assert_array_equal(tspec.heat_counts(image, mask, 15, axis),
+                                      jspec.heat_counts(image, mask, 15, axis))
+    h = jspec.heat_counts(image, mask, 15, 1)
+    v = jspec.heat_counts(image, mask, 15, 0)
+    np.testing.assert_array_equal(tspec.combine(h, v), jspec.combine(h, v))
+    for dev in (1.0, 2.0, 2.5):
+        np.testing.assert_array_equal(tspec.gauss_kernel(dev),
+                                      jspec.gauss_kernel(dev))
+        np.testing.assert_array_equal(tspec.gauss_1d(dev), jspec.gauss_1d(dev))
+    ys, xs = np.nonzero(np.ones((37 - 12, 45 - 13), bool))
+    ys, xs = ys + 6, xs + 6
+    np.testing.assert_array_equal(tspec.rare_picks(dots, ys, xs, 2.0),
+                                  jspec.rare_picks(dots, ys, xs, 2.0))
+    heat = jspec.combine(h, v)
+    np.testing.assert_array_equal(tspec.select(dots, heat, 2.0),
+                                  jspec.select(dots, heat, 2.0))
+    np.testing.assert_array_equal(
+        tspec.filter_fragment(dots, image, mask),
+        jspec.filter_fragment(dots, image, mask))
+
+
+def test_png_writers_match_jax(tmp_path, monkeypatch):
+    """The zlib writer's bytes equal the JAX package's, and ``write_map``
+    writes ``native_to_rgb`` of the map (decoded with zlib alone)."""
+    import builtins
+    import struct
+    import zlib
+
+    from remap_tpu.io import png as jpng
+    from remap_tpu_torch.io import png as tpng
+
+    image = np.random.default_rng(6).integers(0, 16, (11, 17), np.uint8)
+    rgb = tpalette.native_to_rgb(image)
+    tpng._write_png_zlib(str(tmp_path / "t.png"), rgb)
+    jpng._write_png_zlib(str(tmp_path / "j.png"), rgb)
+    assert (tmp_path / "t.png").read_bytes() == (tmp_path / "j.png").read_bytes()
+
+    real_import = builtins.__import__
+
+    def no_pil(name, *args, **kwargs):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError(name)
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    tpng.write_map(str(tmp_path / "m.png"), image)
+    data = (tmp_path / "m.png").read_bytes()
+    assert data == (tmp_path / "t.png").read_bytes()
+    width, height = struct.unpack(">II", data[16:24])
+    idat_len = struct.unpack(">I", data[33:37])[0]
+    raw = zlib.decompress(data[41:41 + idat_len])
+    rows = np.frombuffer(raw, np.uint8).reshape(height, 1 + 3 * width)
+    assert (rows[:, 0] == 0).all()
+    np.testing.assert_array_equal(rows[:, 1:].reshape(height, width, 3), rgb)
+
+
 def test_set_palette_rejects_bad_input():
     with pytest.raises(ValueError, match="preset"):
         tpalette.set_palette("amiga")

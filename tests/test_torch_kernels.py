@@ -73,9 +73,10 @@ def test_extract_medians_kernel_matches_full(cuda_device, hw):
     assert torch.equal(got, want)
 
 
-def test_tables_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("chunked", [False, True])
+def test_tables_kernel_matches_plain(cuda_device, chunked):
     """K2 equals the plain version at NES, capacity 640, on extracted
-    keypoints and on a dense plane that overflows."""
+    keypoints and on a dense plane that overflows, by either route."""
     h, w = NES
     capacity = 640
     layout = make_layout(w, h, 4, 2, 16)
@@ -87,12 +88,49 @@ def test_tables_kernel_matches_plain(cuda_device):
         rng.integers(-(1 << 31), 1 << 31, (8, h, w, 4), dtype=np.int32),
         device=cuda_device)
     for wgt, cod in [(dense.weight, dense.codes), (heavy, heavy_codes)]:
-        got = ttab.build_tables(wgt, cod, layout, capacity)
+        got = ttab.RegionTables(*ktab.build_tables_cuda(
+            wgt, cod, ttab.region_spans(layout), capacity, chunked=chunked))
         want = ttab.build_tables_plain(wgt, cod, layout, capacity)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     assert bool(got.overflow.all())
+
+
+@pytest.mark.parametrize("chunked", [None, False])
+def test_splice_shape_kernels_match_plain(cuda_device, chunked):
+    """K1 on one [1, 1024, 1536] canvas under the 1x1 layout (a world
+    image with an empty band, as splice pads a blended canvas), and K2 on
+    its interior-masked weights at a capacity above the keypoint count
+    (the chunked route by default, and the one-block route)."""
+    hb, wb = 1024, 1536
+    rng = np.random.default_rng(19)
+    world = testing.make_world(hb, wb, rng)
+    world[900:, :] = 0
+    world[:, 1300:] = 0
+    images = torch.as_tensor(world[None], device=cuda_device)
+    layout = make_layout(wb, hb, 1, 1, 0)
+    got = tkpe.extract_dense(images, layout)
+    want = tkpe.extract_dense_plain(images, layout)
+    for name in ("median", "weight", "codes"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    interior = torch.zeros((hb, wb), dtype=torch.uint8, device=cuda_device)
+    interior[2:900 - 4, 2:1300 - 2] = 1
+    weight = got.weight * interior
+    total = int((weight > 0).sum())
+    capacity = 2048
+    while capacity < total:
+        capacity *= 4
+    before = ktab.build_tables_cuda.launches
+    tabs = ttab.RegionTables(*ktab.build_tables_cuda(
+        weight, got.codes, ttab.region_spans(layout), capacity,
+        chunked=chunked))
+    plain = ttab.build_tables_plain(weight, got.codes, layout, capacity)
+    torch.cuda.synchronize()
+    assert ktab.build_tables_cuda.launches == before + 1
+    for a, b in zip(tabs, plain):
+        assert torch.equal(a, b)
+    assert int(tabs.valid.sum()) == total and not bool(tabs.overflow.any())
 
 
 def _walk(rng, f, lo, hi):

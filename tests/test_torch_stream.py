@@ -194,6 +194,16 @@ def _port_modules() -> list:
     return names
 
 
+def test_port_modules_include_the_map_build():
+    """The guards below cover the back half of the map build too."""
+    names = set(_port_modules())
+    assert {"remap_tpu_torch.ops.splice", "remap_tpu_torch.ops.arf",
+            "remap_tpu_torch.spec.arf", "remap_tpu_torch.pipeline.splice",
+            "remap_tpu_torch.pipeline.clean",
+            "remap_tpu_torch.pipeline.builder",
+            "remap_tpu_torch.io.png"} <= names
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port brings in neither JAX nor any
     module of the JAX package (``remap_tpu`` and its submodules)."""
@@ -266,6 +276,18 @@ def _entry_point(name):
     if name == "Fragment.device_dots":
         frag = state.Fragment(dots=np.zeros((4, 5, 16), np.uint16))
         return frag.device_dots
+    if name in ("splice", "clean"):
+        from remap_tpu_torch.pipeline import clean, splice
+
+        frag = state.Fragment(dots=np.zeros((40, 50, 16), np.uint16))
+        fn = splice.splice if name == "splice" else clean.clean
+        extra = ((50, 40),) if name == "splice" else ()
+        return lambda: fn([frag], STREAM_CFG, *extra)
+    if name == "build_from_frames":
+        from remap_tpu_torch.pipeline import builder
+
+        return lambda: builder.build_from_frames(
+            [np.zeros((40, 50), np.uint8)] * 3, STREAM_CFG)
     if name == "stream_state_from_numpy":
         init, _ = tsharded.make_streaming_step(LAYOUT, STREAM_CFG,
                                                atlas_pad=PAD, device="cpu")
@@ -276,7 +298,8 @@ def _entry_point(name):
 
 @pytest.mark.parametrize("name", ["make_streaming_step", "FrameStore",
                                   "Fragment.device_dots",
-                                  "stream_state_from_numpy"])
+                                  "stream_state_from_numpy", "splice",
+                                  "clean", "build_from_frames"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(name):
     """The port's entry points run on the card unless the caller names the
     CPU: without CUDA and with no device given, each raises."""
