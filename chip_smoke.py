@@ -71,7 +71,8 @@ Phases, each of which raises on failure (non-zero exit):
    Printed: window frames/s and labelled states, the match pass's
    frames/s and device idle share, the blit pass's ms, the chain's wall
    frames/s, every rung's ms and peak memory; K1 (at the cropped width,
-   not a multiple of 4), K2 (at every capacity the ladder used), K3 (as
+   not a multiple of 4), K2 (at every capacity the ladder used, each of
+   its two routes timed beside, and on a pair repair's 2 frames), K3 (as
    the blit pass launches it) and K4a (on a window heatmap) against
    their plain versions.
 9. map build: the same session through the whole pipeline,
@@ -100,20 +101,23 @@ launches on the main path that runs it, its largest difference from the
 plain version, its time, the plain version's, its bound (the bytes it must
 move, each input read once and each output written once, over the
 H100's 3.35 TB/s; every kernel here is integer work below that line;
-K3's: the frames, its vote plane if any, and the bins that take a vote
-read and written, as it updates the canvas in place; the frames' box of
-16 bins in and out and the old design's whole canvas are logged beside
-it), share = bound / time, and library_ms: for
+K2's: the weights, the codes of the keypoints its tables keep and of
+each region's first pixel, and the tables, with the whole code plane's
+bound logged beside it; K3's: the frames, its vote plane if any, and the
+bins that take a vote read and written, as it updates the canvas in
+place; the frames' box of 16 bins in and out and the old design's whole
+canvas are logged beside it), share = bound / time, and library_ms: for
 K3 (blit, blit_fragment and blit_collect, the same kernel on the
 fragment canvas and in the blit pass) one index_put_(accumulate=True)
 of the votes on precomputed bins, null for the others, since no single
 PyTorch call computes them.  The collect path's entries (extract_collect,
 tables_collect, blit_collect, cc_labels_window) carry its launches, and
 the map build's (extract_splice, tables_splice: K1 and K2 at the snippet
-shape) the splice stage's.  The last line
-is {"ok": true,
-"device": {...}}.  Without a CUDA device the script exits non-zero and
-prints no result.
+shape) the splice stage's.  Launches count wrapper calls: a K2 call on
+its chunked route (fewer frames x regions than the card's SMs) launches
+two kernels, a count and a scatter, and its time covers both.  The last
+line is {"ok": true, "device": {...}}.  Without a CUDA device the script
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -206,6 +210,39 @@ def bound_ms(inputs, outputs) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def tables_bound_ms(weight, t) -> float:
+    """K2's least time, in ms: every weight byte read once; the codes of
+    the keypoints the tables keep (min(count, K) a region) and of each
+    region's first pixel (its canonical row) read once; the tables
+    written once.  The code plane's other words are never needed."""
+    kept = int(t.valid.sum()) + t.overflow.numel()
+    nbytes = (weight.numel() * weight.element_size() + kept * 16
+              + sum(x.numel() * x.element_size() for x in t))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def tables_routes_ms(weight, codes, layout, cap, want) -> tuple:
+    """K2 by each of its routes on the same inputs, whichever the shape
+    selects (the switch point moved to 0, then past every shape), each
+    equal to ``want``: (one block a region ms, chunked ms)."""
+    from remap_tpu_torch.ops import tables
+    from remap_tpu_torch.ops.kernels import tables as ktab
+
+    spans = tables.region_spans(layout)
+    selected = ktab.CHUNKED_BELOW
+    out = []
+    try:
+        for below in (0, 1 << 30):
+            ktab.CHUNKED_BELOW = below
+            def call():
+                return ktab.build_tables_cuda(weight, codes, spans, cap)
+            require_equal(call(), want, f"tables route {len(out)} K={cap}")
+            out.append(time_ms(call, 20))
+    finally:
+        ktab.CHUNKED_BELOW = selected
+    return tuple(out)
+
+
 def kernel_entry(name, replaces, source, err, ms, plain, bound,
                  library=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -289,12 +326,16 @@ def kernel_phase(dev, frames_np):
         raise AssertionError("the dense plane should overflow every region")
     ms2 = time_ms(lambda: tables.build_tables(dense.weight, dense.codes, nes,
                                               CAPACITY), 20)
-    bound2 = bound_ms((dense.weight, dense.codes), got2)
+    bound2 = tables_bound_ms(dense.weight, got2)
     plain2 = time_ms(lambda: tables.build_tables_plain(
         dense.weight, dense.codes, nes, CAPACITY), 3)
+    one2, chunk2 = tables_routes_ms(dense.weight, dense.codes, nes, CAPACITY,
+                                    got2)
     log(f"tables NES cap {CAPACITY}: equal (exact, tolerance 0; dense "
         f"plane overflows); kernel {ms2:.4f} ms, plain {plain2:.4f} ms, "
-        f"bound {bound2:.4f} ms")
+        f"bound {bound2:.4f} ms (whole code plane read "
+        f"{bound_ms((dense.weight, dense.codes), got2):.4f}); routes: one "
+        f"block a region {one2:.4f} ms, chunked {chunk2:.4f} ms")
 
     return [
         kernel_entry("extract", "remap_tpu/ops/pallas/extract.py:215",
@@ -1155,12 +1196,23 @@ def collect_kernels(dev, cropped, res, cfg, capacities, heat):
                                                  layout, cap), 20)
         plain = time_ms(lambda: tables.build_tables_plain(
             got.weight, got.codes, layout, cap), 3)
-        bound = bound_ms((got.weight, got.codes), t)
+        bound = tables_bound_ms(got.weight, t)
+        one, chunk = tables_routes_ms(got.weight, got.codes, layout, cap, t)
         k2[cap] = (err, ms, plain, bound)
         log(f"tables cropped [{b},{fh},{fw}] capacity {cap}: equal (exact, "
             f"tolerance 0; {int(t.overflow.sum())} of {t.overflow.numel()} "
             f"region tables overflow); kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {bound:.4f} ms")
+            f"{plain:.4f} ms, bound {bound:.4f} ms (whole code plane read "
+            f"{bound_ms((got.weight, got.codes), t):.4f}); routes: one block "
+            f"a region {one:.4f} ms, chunked {chunk:.4f} ms")
+    # a pair repair's batch: two frames, 16 regions
+    top = max(capacities)
+    w2, c2 = got.weight[:2].contiguous(), got.codes[:2].contiguous()
+    one, chunk = tables_routes_ms(w2, c2, layout, top, tables.build_tables_plain(
+        w2, c2, layout, top))
+    log(f"tables cropped [2,{fh},{fw}] capacity {top} (a pair repair's "
+        f"batch): routes: one block a region {one:.4f} ms, chunked "
+        f"{chunk:.4f} ms")
 
     # K3 as the blit pass launches it: the first chunk of the first
     # fragment at its canvas positions, the grid over the chunk's box
@@ -1197,7 +1249,6 @@ def collect_kernels(dev, cropped, res, cfg, capacities, heat):
     log(f"cc labels window heatmap {tuple(heat.shape)}: equal (exact, "
         f"tolerance 0); kernel {ms4:.4f} ms, plain {plain4:.4f} ms, bound "
         f"{bound4:.4f} ms")
-    top = max(capacities)
     return {
         "extract": kernel_entry("extract_collect",
                                 "remap_tpu/ops/pallas/extract.py:253",
@@ -1654,7 +1705,6 @@ def splice_kernels(dev, world_frag, cfg, smi: str):
 
     from remap_tpu_torch.core.regions import make_layout
     from remap_tpu_torch.ops import atlas, kpe, tables
-    from remap_tpu_torch.ops.kernels import tables as ktab
     from remap_tpu_torch.pipeline import splice
 
     ch, cw = world_frag.shape
@@ -1680,22 +1730,19 @@ def splice_kernels(dev, world_frag, cfg, smi: str):
     err2 = require_equal(t, tables.build_tables_plain(weight, codes, layout,
                                                       cap),
                          f"tables splice [1,{hb},{wb}] K={cap}")
-    spans = tables.region_spans(layout)
-    one = ktab.build_tables_cuda(weight, codes, spans, cap, chunked=False)
-    require_equal(one, t, "tables splice, one-block route")
     ms2 = time_ms(lambda: tables.build_tables(weight, codes, layout, cap), 20)
-    one_ms = time_ms(lambda: ktab.build_tables_cuda(weight, codes, spans, cap,
-                                                    chunked=False), 5)
+    one_ms, _ = tables_routes_ms(weight, codes, layout, cap, t)
     plain2 = time_ms(lambda: tables.build_tables_plain(weight, codes, layout,
                                                        cap), 3)
-    bound2 = bound_ms((weight, codes), t)
+    bound2 = tables_bound_ms(weight, t)
     log(f"extract splice [1,{hb},{wb}] (the merged canvas {ch}x{cw}, 1x1 "
         f"layout): equal (exact, tolerance 0); kernel {ms1:.4f} ms, plain "
         f"{plain1:.4f} ms, bound {bound1:.4f} ms, on {smi}")
     log(f"tables splice [1,{hb},{wb}], {total} keypoints, K={cap}: equal "
         f"(exact, tolerance 0), both routes; chunked {ms2:.4f} ms, one "
         f"block a region {one_ms:.4f} ms, plain {plain2:.4f} ms, bound "
-        f"{bound2:.4f} ms, on {smi}")
+        f"{bound2:.4f} ms (whole code plane read "
+        f"{bound_ms((weight, codes), t):.4f}), on {smi}")
     return {
         "extract": kernel_entry("extract_splice",
                                 "remap_tpu/ops/pallas/extract.py:253",

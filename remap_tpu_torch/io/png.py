@@ -2,8 +2,10 @@
 remap_tpu/io/png.py, pngu.hpp's role).
 
 The reference writes RGB8 PNGs via libpng (pngu.hpp:18-105, write-only).
-Here: Pillow when available, else a minimal self-contained zlib encoder
-(RGB8, no interlace), so writing a map needs no imaging package.
+Here: one self-contained zlib encoder (RGB8, no interlace, filter 0), the
+JAX package's fallback writer byte for byte.  The port takes it on every
+host, so a map's file does not depend on whether an imaging package is
+installed.
 """
 
 from __future__ import annotations
@@ -18,17 +20,6 @@ from remap_tpu_torch.core import palette
 
 def write_png(path: str, rgb: np.ndarray) -> None:
     """[H, W, 3] uint8 -> PNG file."""
-    try:
-        from PIL import Image
-
-        Image.fromarray(rgb, mode="RGB").save(path)
-        return
-    except ImportError:
-        pass
-    _write_png_zlib(path, rgb)
-
-
-def _write_png_zlib(path: str, rgb: np.ndarray) -> None:
     h, w, _ = rgb.shape
 
     def chunk(tag: bytes, data: bytes) -> bytes:

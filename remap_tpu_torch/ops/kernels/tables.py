@@ -5,7 +5,11 @@ plain version is ``remap_tpu_torch.ops.tables.build_tables_plain``.
 Two routes, one result: a block per (frame, region) where those fill the
 card, and the chunked route (a block per ``CHUNK`` pixels of a region, a
 count launch then a scatter launch) where they do not, as for splice's
-single whole-canvas region."""
+single whole-canvas region and a pair repair's few frames.  On an H100
+the chunked route is 1.07-1.29x slower on full batches (NES, 256 frames;
+C64, 128) and 2.5x faster on 2 frames, 106x on splice's one region
+(chip_smoke.py).  ``launches`` counts calls: a chunked call launches two
+kernels."""
 
 from __future__ import annotations
 
@@ -20,18 +24,18 @@ from remap_tpu_torch.ops.kernels import check_input, stream_handle
 MAX_REGIONS = 64
 #: pixels of a region each block of the chunked route takes
 CHUNK = 4096
-#: (frames x regions) below which the chunked route runs
-CHUNKED_BELOW = 132     # the H100 SXM's SM count
+#: (frames x regions) below which the chunked route runs: fewer blocks
+#: than the H100 SXM's 132 SMs leave the one-block route's card idle
+CHUNKED_BELOW = 132
 
 
 def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
-                      spans: list[tuple[int, int, int, int]], capacity: int,
-                      chunked: bool | None = None):
+                      spans: list[tuple[int, int, int, int]], capacity: int):
     """weight [B, H, W] uint8, codes [B, H, W, 4] int32 (CUDA), region
     spans (x_lo, x_hi, y_lo, y_hi) -> (codes [B, R, K, 4] int32,
     pos [B, R, K, 2] int32, valid [B, R, K] bool, wcounts [B, R, 3] int32,
-    overflow [B, R] bool).  ``chunked`` picks the route (default: chunked
-    when B * R < ``CHUNKED_BELOW``)."""
+    overflow [B, R] bool).  The chunked route runs when
+    B * R < ``CHUNKED_BELOW``."""
     b, h, w = weight.shape
     r, k = len(spans), capacity
     check_input(weight, "weight", torch.uint8, (None, None, None))
@@ -53,11 +57,9 @@ def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
     if b == 0:
         return out_codes, out_pos, valid, wcounts, overflow
     flat_spans = (ctypes.c_int32 * (4 * r))(*(v for s in spans for v in s))
-    if chunked is None:
-        chunked = b * r < CHUNKED_BELOW
     outs = (out_codes.data_ptr(), out_pos.data_ptr(), valid.data_ptr(),
             wcounts.data_ptr(), overflow.data_ptr(), stream_handle(dev))
-    if chunked:
+    if b * r < CHUNKED_BELOW:
         most = max((x_hi - x_lo) * (y_hi - y_lo)
                    for x_lo, x_hi, y_lo, y_hi in spans)
         n_chunks = -(-most // CHUNK)

@@ -73,23 +73,28 @@ def test_extract_medians_kernel_matches_full(cuda_device, hw):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("chunked", [False, True])
-def test_tables_kernel_matches_plain(cuda_device, chunked):
+@pytest.mark.parametrize("frames, chunked", [(8, True), (32, False)])
+def test_tables_kernel_matches_plain(cuda_device, frames, chunked):
     """K2 equals the plain version at NES, capacity 640, on extracted
-    keypoints and on a dense plane that overflows, by either route."""
+    keypoints and on a dense plane that overflows, by the route each
+    batch selects: 8 frames x 8 regions the chunked one, 32 the one
+    block a region."""
     h, w = NES
     capacity = 640
     layout = make_layout(w, h, 4, 2, 16)
-    dense = tkpe.extract_dense(_random_frames(cuda_device, 8, h, w), layout)
+    spans = ttab.region_spans(layout)
+    assert (frames * len(spans) < ktab.CHUNKED_BELOW) == chunked
+    dense = tkpe.extract_dense(_random_frames(cuda_device, frames, h, w),
+                               layout)
     rng = np.random.default_rng(15)
-    heavy = torch.as_tensor(rng.integers(1, 3, (8, h, w), dtype=np.uint8),
+    heavy = torch.as_tensor(rng.integers(1, 3, (frames, h, w), dtype=np.uint8),
                             device=cuda_device)
     heavy_codes = torch.as_tensor(
-        rng.integers(-(1 << 31), 1 << 31, (8, h, w, 4), dtype=np.int32),
+        rng.integers(-(1 << 31), 1 << 31, (frames, h, w, 4), dtype=np.int32),
         device=cuda_device)
     for wgt, cod in [(dense.weight, dense.codes), (heavy, heavy_codes)]:
         got = ttab.RegionTables(*ktab.build_tables_cuda(
-            wgt, cod, ttab.region_spans(layout), capacity, chunked=chunked))
+            wgt, cod, spans, capacity))
         want = ttab.build_tables_plain(wgt, cod, layout, capacity)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
@@ -97,12 +102,11 @@ def test_tables_kernel_matches_plain(cuda_device, chunked):
     assert bool(got.overflow.all())
 
 
-@pytest.mark.parametrize("chunked", [None, False])
-def test_splice_shape_kernels_match_plain(cuda_device, chunked):
+def test_splice_shape_kernels_match_plain(cuda_device):
     """K1 on one [1, 1024, 1536] canvas under the 1x1 layout (a world
     image with an empty band, as splice pads a blended canvas), and K2 on
     its interior-masked weights at a capacity above the keypoint count
-    (the chunked route by default, and the one-block route)."""
+    (one region: the chunked route)."""
     hb, wb = 1024, 1536
     rng = np.random.default_rng(19)
     world = testing.make_world(hb, wb, rng)
@@ -123,8 +127,7 @@ def test_splice_shape_kernels_match_plain(cuda_device, chunked):
         capacity *= 4
     before = ktab.build_tables_cuda.launches
     tabs = ttab.RegionTables(*ktab.build_tables_cuda(
-        weight, got.codes, ttab.region_spans(layout), capacity,
-        chunked=chunked))
+        weight, got.codes, ttab.region_spans(layout), capacity))
     plain = ttab.build_tables_plain(weight, got.codes, layout, capacity)
     torch.cuda.synchronize()
     assert ktab.build_tables_cuda.launches == before + 1
