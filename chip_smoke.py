@@ -12,7 +12,8 @@ Phases, each of which raises on failure (non-zero exit):
    kernel, so the host's launch cost does not show):
    extract (K1) and its medians-only instantiation at NES
    [256, 240, 256] and C64 [64, 312, 388], tables (K2) at NES / capacity
-   640 on K1's output and on a dense plane that overflows.
+   640 on K1's output and on a dense plane that overflows, with its bound
+   and share.
 3. main path: the port's make_streaming_step at the JAX package's
    benchmark configuration (NES, batches of 256, capacity 640,
    multiplicity 1, vote radius 16, atlas pad 128) on utils.clips.make_clip
@@ -71,10 +72,10 @@ Phases, each of which raises on failure (non-zero exit):
    Printed: window frames/s and labelled states, the match pass's
    frames/s and device idle share, the blit pass's ms, the chain's wall
    frames/s, every rung's ms and peak memory; K1 (at the cropped width,
-   not a multiple of 4), K2 (at every capacity the ladder used, each of
-   its two routes timed beside, and on a pair repair's 2 frames), K3 (as
-   the blit pass launches it) and K4a (on a window heatmap) against
-   their plain versions.
+   not a multiple of 4), K2 (at every capacity the ladder used, and at
+   the top one on a pair repair's 2 frames and on a 17-frame batch, each
+   with its bound and share), K3 (as the blit pass launches it) and K4a
+   (on a window heatmap) against their plain versions.
 9. map build: the same session through the whole pipeline,
    pipeline.builder.build_from_frames (window -> crop -> collect -> splice
    -> foreground -> clean) at PipelineConfig(), with stage callbacks that
@@ -93,8 +94,8 @@ Phases, each of which raises on failure (non-zero exit):
    (multiplicity, K, slot or dense, ms, peak memory), every snippet's
    keypoints and capacity, and K2's share of one merge's device work
    (torch.profiler); K1 and K2 at the merged world canvas's snippet shape
-   (1x1 layout, K2 at the count-sized capacity, by both of its routes)
-   against their plain versions.
+   (1x1 layout, K2 at the count-sized capacity) against their plain
+   versions.
 
 The line before the last is a JSON object of the kernels: for each, its
 launches on the main path that runs it, its largest difference from the
@@ -113,10 +114,9 @@ of the votes on precomputed bins, null for the others, since no single
 PyTorch call computes them.  The collect path's entries (extract_collect,
 tables_collect, blit_collect, cc_labels_window) carry its launches, and
 the map build's (extract_splice, tables_splice: K1 and K2 at the snippet
-shape) the splice stage's.  Launches count wrapper calls: a K2 call on
-its chunked route (fewer frames x regions than the card's SMs) launches
-two kernels, a count and a scatter, and its time covers both.  The last
-line is {"ok": true, "device": {...}}.  Without a CUDA device the script
+shape) the splice stage's.  Launches count wrapper calls: a K2 call
+launches two kernels, a count and a scan, and its time covers both.  The
+last line is {"ok": true, "device": {...}}.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
 
@@ -221,28 +221,6 @@ def tables_bound_ms(weight, t) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def tables_routes_ms(weight, codes, layout, cap, want) -> tuple:
-    """K2 by each of its routes on the same inputs, whichever the shape
-    selects (the switch point moved to 0, then past every shape), each
-    equal to ``want``: (one block a region ms, chunked ms)."""
-    from remap_tpu_torch.ops import tables
-    from remap_tpu_torch.ops.kernels import tables as ktab
-
-    spans = tables.region_spans(layout)
-    selected = ktab.CHUNKED_BELOW
-    out = []
-    try:
-        for below in (0, 1 << 30):
-            ktab.CHUNKED_BELOW = below
-            def call():
-                return ktab.build_tables_cuda(weight, codes, spans, cap)
-            require_equal(call(), want, f"tables route {len(out)} K={cap}")
-            out.append(time_ms(call, 20))
-    finally:
-        ktab.CHUNKED_BELOW = selected
-    return tuple(out)
-
-
 def kernel_entry(name, replaces, source, err, ms, plain, bound,
                  library=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -329,13 +307,10 @@ def kernel_phase(dev, frames_np):
     bound2 = tables_bound_ms(dense.weight, got2)
     plain2 = time_ms(lambda: tables.build_tables_plain(
         dense.weight, dense.codes, nes, CAPACITY), 3)
-    one2, chunk2 = tables_routes_ms(dense.weight, dense.codes, nes, CAPACITY,
-                                    got2)
     log(f"tables NES cap {CAPACITY}: equal (exact, tolerance 0; dense "
         f"plane overflows); kernel {ms2:.4f} ms, plain {plain2:.4f} ms, "
-        f"bound {bound2:.4f} ms (whole code plane read "
-        f"{bound_ms((dense.weight, dense.codes), got2):.4f}); routes: one "
-        f"block a region {one2:.4f} ms, chunked {chunk2:.4f} ms")
+        f"bound {bound2:.4f} ms, share {bound2 / ms2:.3f} (whole code plane "
+        f"read {bound_ms((dense.weight, dense.codes), got2):.4f})")
 
     return [
         kernel_entry("extract", "remap_tpu/ops/pallas/extract.py:215",
@@ -1197,22 +1172,25 @@ def collect_kernels(dev, cropped, res, cfg, capacities, heat):
         plain = time_ms(lambda: tables.build_tables_plain(
             got.weight, got.codes, layout, cap), 3)
         bound = tables_bound_ms(got.weight, t)
-        one, chunk = tables_routes_ms(got.weight, got.codes, layout, cap, t)
         k2[cap] = (err, ms, plain, bound)
         log(f"tables cropped [{b},{fh},{fw}] capacity {cap}: equal (exact, "
             f"tolerance 0; {int(t.overflow.sum())} of {t.overflow.numel()} "
             f"region tables overflow); kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {bound:.4f} ms (whole code plane read "
-            f"{bound_ms((got.weight, got.codes), t):.4f}); routes: one block "
-            f"a region {one:.4f} ms, chunked {chunk:.4f} ms")
-    # a pair repair's batch: two frames, 16 regions
+            f"{plain:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f} "
+            f"(whole code plane read "
+            f"{bound_ms((got.weight, got.codes), t):.4f})")
+    # a pair repair's batch (2 frames) and a short one (17) at the top
     top = max(capacities)
-    w2, c2 = got.weight[:2].contiguous(), got.codes[:2].contiguous()
-    one, chunk = tables_routes_ms(w2, c2, layout, top, tables.build_tables_plain(
-        w2, c2, layout, top))
-    log(f"tables cropped [2,{fh},{fw}] capacity {top} (a pair repair's "
-        f"batch): routes: one block a region {one:.4f} ms, chunked "
-        f"{chunk:.4f} ms")
+    for n in (2, 17):
+        wn, cn = got.weight[:n].contiguous(), got.codes[:n].contiguous()
+        t = tables.build_tables(wn, cn, layout, top)
+        require_equal(t, tables.build_tables_plain(wn, cn, layout, top),
+                      f"tables cropped [{n},{fh},{fw}] capacity {top}")
+        ms = time_ms(lambda: tables.build_tables(wn, cn, layout, top), 20)
+        bound = tables_bound_ms(wn, t)
+        log(f"tables cropped [{n},{fh},{fw}] capacity {top}: equal (exact, "
+            f"tolerance 0); kernel {ms:.4f} ms, bound {bound:.4f} ms, share "
+            f"{bound / ms:.3f}")
 
     # K3 as the blit pass launches it: the first chunk of the first
     # fragment at its canvas positions, the grid over the chunk's box
@@ -1731,7 +1709,6 @@ def splice_kernels(dev, world_frag, cfg, smi: str):
                                                       cap),
                          f"tables splice [1,{hb},{wb}] K={cap}")
     ms2 = time_ms(lambda: tables.build_tables(weight, codes, layout, cap), 20)
-    one_ms, _ = tables_routes_ms(weight, codes, layout, cap, t)
     plain2 = time_ms(lambda: tables.build_tables_plain(weight, codes, layout,
                                                        cap), 3)
     bound2 = tables_bound_ms(weight, t)
@@ -1739,10 +1716,9 @@ def splice_kernels(dev, world_frag, cfg, smi: str):
         f"layout): equal (exact, tolerance 0); kernel {ms1:.4f} ms, plain "
         f"{plain1:.4f} ms, bound {bound1:.4f} ms, on {smi}")
     log(f"tables splice [1,{hb},{wb}], {total} keypoints, K={cap}: equal "
-        f"(exact, tolerance 0), both routes; chunked {ms2:.4f} ms, one "
-        f"block a region {one_ms:.4f} ms, plain {plain2:.4f} ms, bound "
-        f"{bound2:.4f} ms (whole code plane read "
-        f"{bound_ms((weight, codes), t):.4f}), on {smi}")
+        f"(exact, tolerance 0); kernel {ms2:.4f} ms, plain {plain2:.4f} ms, "
+        f"bound {bound2:.4f} ms, share {bound2 / ms2:.3f} (whole code plane "
+        f"read {bound_ms((weight, codes), t):.4f}), on {smi}")
     return {
         "extract": kernel_entry("extract_splice",
                                 "remap_tpu/ops/pallas/extract.py:253",

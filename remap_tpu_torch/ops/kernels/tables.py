@@ -2,14 +2,11 @@
 Pallas kernel remap_tpu/ops/pallas/tables.py::build_tables_pallas).  Its
 plain version is ``remap_tpu_torch.ops.tables.build_tables_plain``.
 
-Two routes, one result: a block per (frame, region) where those fill the
-card, and the chunked route (a block per ``CHUNK`` pixels of a region, a
-count launch then a scatter launch) where they do not, as for splice's
-single whole-canvas region and a pair repair's few frames.  On an H100
-the chunked route is 1.07-1.29x slower on full batches (NES, 256 frames;
-C64, 128) and 2.5x faster on 2 frames, 106x on splice's one region
-(chip_smoke.py).  ``launches`` counts calls: a chunked call launches two
-kernels."""
+One design for every shape: tiles of ``TILE_WORDS`` 16-byte-aligned
+words of a region's rows (up to 4096 pixels) in each frame, in two
+launches: a block a tile counts its keypoints, then a block a tile ranks,
+gathers and writes them with its share of the table fill.  ``launches``
+counts calls: a call launches two kernels."""
 
 from __future__ import annotations
 
@@ -22,11 +19,14 @@ from remap_tpu_torch.ops.kernels import check_input, stream_handle
 
 #: regions a layout may have (the kernel takes the spans by value)
 MAX_REGIONS = 64
-#: pixels of a region each block of the chunked route takes
-CHUNK = 4096
-#: (frames x regions) below which the chunked route runs: fewer blocks
-#: than the H100 SXM's 132 SMs leave the one-block route's card idle
-CHUNKED_BELOW = 132
+#: 16-byte words of a region's rows a tile holds (K2_THREADS x K2_WORDS
+#: in csrc/tables.cu: 128 threads x 2)
+TILE_WORDS = 256
+
+
+def words_per_row(width: int) -> int:
+    """16-byte-aligned words a row of ``width`` bytes can span."""
+    return (width + 30) // 16
 
 
 def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
@@ -34,8 +34,7 @@ def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
     """weight [B, H, W] uint8, codes [B, H, W, 4] int32 (CUDA), region
     spans (x_lo, x_hi, y_lo, y_hi) -> (codes [B, R, K, 4] int32,
     pos [B, R, K, 2] int32, valid [B, R, K] bool, wcounts [B, R, 3] int32,
-    overflow [B, R] bool).  The chunked route runs when
-    B * R < ``CHUNKED_BELOW``."""
+    overflow [B, R] bool)."""
     b, h, w = weight.shape
     r, k = len(spans), capacity
     check_input(weight, "weight", torch.uint8, (None, None, None))
@@ -44,6 +43,8 @@ def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
         raise ValueError("weight and codes must share a device")
     if not 0 < r <= MAX_REGIONS or k <= 0:
         raise ValueError(f"need 1..{MAX_REGIONS} regions and capacity > 0")
+    if h > 0xFFFF or w > 0xFFFF:
+        raise ValueError(f"a {w}x{h} frame: positions are packed in 16 bits")
     for x_lo, x_hi, y_lo, y_hi in spans:
         if not (0 <= x_lo < x_hi <= w and 0 <= y_lo < y_hi <= h):
             raise ValueError(f"region span {(x_lo, x_hi, y_lo, y_hi)} "
@@ -56,23 +57,16 @@ def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
     overflow = torch.empty((b, r), dtype=torch.bool, device=dev)
     if b == 0:
         return out_codes, out_pos, valid, wcounts, overflow
+    most = max((y_hi - y_lo) * words_per_row(x_hi - x_lo)
+               for x_lo, x_hi, y_lo, y_hi in spans)
+    n_tiles = -(-most // TILE_WORDS)
+    counts = torch.empty((b, r, n_tiles, 4), dtype=torch.int32, device=dev)
     flat_spans = (ctypes.c_int32 * (4 * r))(*(v for s in spans for v in s))
-    outs = (out_codes.data_ptr(), out_pos.data_ptr(), valid.data_ptr(),
-            wcounts.data_ptr(), overflow.data_ptr(), stream_handle(dev))
-    if b * r < CHUNKED_BELOW:
-        most = max((x_hi - x_lo) * (y_hi - y_lo)
-                   for x_lo, x_hi, y_lo, y_hi in spans)
-        n_chunks = -(-most // CHUNK)
-        counts = torch.empty((b, r, n_chunks, 2), dtype=torch.int32,
-                             device=dev)
-        rc = _build.library().remap_tables_chunked(
-            weight.data_ptr(), codes.data_ptr(), b, h, w,
-            ctypes.addressof(flat_spans), r, k, CHUNK, n_chunks,
-            counts.data_ptr(), *outs)
-    else:
-        rc = _build.library().remap_tables(
-            weight.data_ptr(), codes.data_ptr(), b, h, w,
-            ctypes.addressof(flat_spans), r, k, *outs)
+    rc = _build.library().remap_tables(
+        weight.data_ptr(), codes.data_ptr(), b, h, w,
+        ctypes.addressof(flat_spans), r, k, n_tiles, counts.data_ptr(),
+        out_codes.data_ptr(), out_pos.data_ptr(), valid.data_ptr(),
+        wcounts.data_ptr(), overflow.data_ptr(), stream_handle(dev))
     _build.check(rc, "tables")
     build_tables_cuda.launches += 1
     return out_codes, out_pos, valid, wcounts, overflow

@@ -73,40 +73,113 @@ def test_extract_medians_kernel_matches_full(cuda_device, hw):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("frames, chunked", [(8, True), (32, False)])
-def test_tables_kernel_matches_plain(cuda_device, frames, chunked):
-    """K2 equals the plain version at NES, capacity 640, on extracted
-    keypoints and on a dense plane that overflows, by the route each
-    batch selects: 8 frames x 8 regions the chunked one, 32 the one
-    block a region."""
-    h, w = NES
-    capacity = 640
-    layout = make_layout(w, h, 4, 2, 16)
-    spans = ttab.region_spans(layout)
-    assert (frames * len(spans) < ktab.CHUNKED_BELOW) == chunked
-    dense = tkpe.extract_dense(_random_frames(cuda_device, frames, h, w),
-                               layout)
+def _keypoints_at(rng, b, h, w, where, device):
+    """A weight plane with keypoints (weight 1 or 2) at the flat pixel
+    indices ``where`` of every frame, and random codes."""
+    weight = np.zeros((b, h * w), np.uint8)
+    weight[:, where] = rng.integers(1, 3, (b, len(where)))
+    codes = rng.integers(-(1 << 31), 1 << 31, (b, h, w, 4), dtype=np.int32)
+    return (torch.as_tensor(weight.reshape(b, h, w), device=device),
+            torch.as_tensor(codes, device=device))
+
+
+def _tables_case(case, device):
+    """(weight, codes, layout, capacity) of a K2 case."""
     rng = np.random.default_rng(15)
-    heavy = torch.as_tensor(rng.integers(1, 3, (frames, h, w), dtype=np.uint8),
-                            device=cuda_device)
-    heavy_codes = torch.as_tensor(
-        rng.integers(-(1 << 31), 1 << 31, (frames, h, w, 4), dtype=np.int32),
-        device=cuda_device)
-    for wgt, cod in [(dense.weight, dense.codes), (heavy, heavy_codes)]:
-        got = ttab.RegionTables(*ktab.build_tables_cuda(
-            wgt, cod, spans, capacity))
-        want = ttab.build_tables_plain(wgt, cod, layout, capacity)
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-    assert bool(got.overflow.all())
+    if case.startswith("nes"):       # K1's keypoints at NES, capacity 640
+        h, w = NES
+        layout = make_layout(w, h, 4, 2, 16)
+        dense = tkpe.extract_dense(
+            _random_frames(device, int(case[3:]), h, w), layout)
+        return dense.weight, dense.codes, layout, 640
+    if case.startswith("cropped"):   # the collect batch's cropped C64 frames
+        frames, capacity = (int(v) for v in case[7:].split("_"))
+        h, w = 289, 377
+        world = testing.make_world(h + 64, w + 64, rng)
+        ys, xs = rng.integers(0, 65, (2, frames))
+        images = np.stack([world[y:y + h, x:x + w] for y, x in zip(ys, xs)])
+        cfg = PipelineConfig()
+        layout = make_layout(w, h, cfg.grid_width, cfg.grid_height,
+                             cfg.grid_overlap)
+        dense = tkpe.extract_dense(torch.as_tensor(images, device=device),
+                                   layout)
+        return dense.weight, dense.codes, layout, capacity
+    if case == "small_regions":      # every region under one tile
+        h, w = 64, 96
+        layout = make_layout(w, h, 4, 2, 16)
+        weight = (rng.random((4, h, w)) < 0.4) * rng.integers(1, 3, (4, h, w))
+        codes = rng.integers(-(1 << 31), 1 << 31, (4, h, w, 4), dtype=np.int32)
+        return (torch.as_tensor(weight.astype(np.uint8), device=device),
+                torch.as_tensor(codes, device=device), layout, 300)
+    if case == "tile_boundary":      # keypoint K the first tile's last
+        h, w = 100, 96               # pixel, keypoint K + 1 the next's first
+        layout = make_layout(w, h, 1, 1, 0)
+        x_lo, x_hi, y_lo, _ = ttab.region_spans(layout)[0]
+        rw, capacity = x_hi - x_lo, 300
+        # the second tile starts at word k of region row `row`; rows of 96
+        # bytes keep every frame's words at the same columns
+        row, k = divmod(ktab.TILE_WORDS, ktab.words_per_row(rw))
+        start = (y_lo + row) * w + x_lo
+        tile = row * rw + (start // 16 + k) * 16 - start
+        assert 0 < tile - row * rw < rw
+        ranks = np.sort(rng.choice(tile - 1, capacity - 1, replace=False))
+        region_px = np.concatenate([ranks, [tile - 1, tile, tile + 7]])
+        flat = (y_lo + region_px // rw) * w + x_lo + region_px % rw
+        return (*_keypoints_at(rng, 2, h, w, flat, device), layout, capacity)
+    if case == "count_is_capacity":  # frame 0 holds exactly K keypoints
+        h, w = 200, 300
+        layout = make_layout(w, h, 1, 1, 0)
+        weight = (rng.random((2, h, w)) < 0.3) * rng.integers(1, 3, (2, h, w))
+        codes = rng.integers(-(1 << 31), 1 << 31, (2, h, w, 4), dtype=np.int32)
+        weight = torch.as_tensor(weight.astype(np.uint8), device=device)
+        capacity = int((ttab.build_tables_plain(
+            weight[:1], torch.as_tensor(codes[:1], device=device), layout,
+            1).wcounts[0, 0, 1:]).sum())
+        return weight, torch.as_tensor(codes, device=device), layout, capacity
+    assert case == "dense"           # every pixel a keypoint: overflows
+    h, w = NES
+    weight = rng.integers(1, 3, (8, h, w), dtype=np.uint8)
+    codes = rng.integers(-(1 << 31), 1 << 31, (8, h, w, 4), dtype=np.int32)
+    return (torch.as_tensor(weight, device=device),
+            torch.as_tensor(codes, device=device),
+            make_layout(w, h, 4, 2, 16), 640)
+
+
+@pytest.mark.parametrize("case", [
+    "nes2", "nes8", "nes32", "cropped2_512", "cropped2_16384",
+    "cropped17_512", "cropped17_16384", "small_regions", "tile_boundary",
+    "count_is_capacity", "dense"])
+def test_tables_kernel_matches_plain(cuda_device, case):
+    """K2 equals the plain version on every row at the main path's shapes
+    and at the tiling's edges: NES at capacity 640 on 2, 8 and 32 frames
+    of K1's keypoints; cropped C64 [2 and 17, 289, 377] at 512 and 16384;
+    regions under one tile; keypoint K on a tile's last pixel and K + 1 on
+    the next tile's first; a region holding exactly K keypoints; a plane
+    of keypoints that overflows every region."""
+    weight, codes, layout, capacity = _tables_case(case, cuda_device)
+    before = ktab.build_tables_cuda.launches
+    got = ttab.RegionTables(*ktab.build_tables_cuda(
+        weight, codes, ttab.region_spans(layout), capacity))
+    want = ttab.build_tables_plain(weight, codes, layout, capacity)
+    torch.cuda.synchronize()
+    assert ktab.build_tables_cuda.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if case == "dense":
+        assert bool(want.overflow.all())
+    elif case == "tile_boundary":
+        assert want.valid[:, 0].sum(1).tolist() == [capacity] * 2
+        assert want.overflow.all() and (want.wcounts[:, 0, 1:].sum(1)
+                                        == capacity + 2).all()
+    elif case == "count_is_capacity":
+        assert bool(want.valid[0].all()) and not bool(want.overflow[0].any())
 
 
 def test_splice_shape_kernels_match_plain(cuda_device):
     """K1 on one [1, 1024, 1536] canvas under the 1x1 layout (a world
     image with an empty band, as splice pads a blended canvas), and K2 on
     its interior-masked weights at a capacity above the keypoint count
-    (one region: the chunked route)."""
+    (one region of ~1.2M pixels: hundreds of tiles)."""
     hb, wb = 1024, 1536
     rng = np.random.default_rng(19)
     world = testing.make_world(hb, wb, rng)

@@ -75,6 +75,51 @@ def test_tables_plain_small_region_pads_to_capacity():
                                                    dtype=torch.int32)).all()
 
 
+def _edge_case(case, rng):
+    """(weight, codes, layout, capacity) at an edge of the kernel's tiling:
+    region 0 holding exactly ``capacity`` keypoints, a capacity of 1, a
+    region one row tall."""
+    if case == "count_is_capacity":
+        weight, codes = _planes(rng, 2, 64, 96, 0.0)
+        x_lo, x_hi, y_lo, y_hi = LAYOUT.region_span(0, 0)
+        n = (x_hi - x_lo) * (y_hi - y_lo)
+        picked = np.sort(rng.choice(n, 100, replace=False))
+        weight[:, y_lo + picked // (x_hi - x_lo),
+               x_lo + picked % (x_hi - x_lo)] = rng.integers(1, 3, (2, 100))
+        return weight, codes, LAYOUT, 100
+    if case == "capacity_1":
+        weight, codes = _planes(rng, 2, 64, 96, 0.35)
+        return weight, codes, LAYOUT, 1
+    assert case == "one_row"
+    layout = make_layout(300, 7, 1, 1, 0)
+    weight, codes = _planes(rng, 2, 7, 300, 0.35)
+    return weight, codes, layout, 64
+
+
+@pytest.mark.parametrize("case", ["count_is_capacity", "capacity_1",
+                                  "one_row"])
+def test_tables_plain_matches_jax_topk_at_edges(case):
+    """The plain version (the card tests' oracle) equals JAX's topk tables
+    where a tiled kernel is most likely to slip: a count exactly the
+    capacity, a capacity of 1, a one-row region."""
+    rng = np.random.default_rng(16)
+    weight, codes, layout, capacity = _edge_case(case, rng)
+    ref = jtab.build_tables(jnp.asarray(weight), jnp.asarray(codes),
+                            jax_twin(layout), capacity, mode="topk")
+    got = ttab.build_tables(to_torch(weight), to_torch(codes), layout,
+                            capacity)
+    assert_tables_equal(got, ref, full=False, msg=case)
+    counts = got.wcounts[..., 1:].sum(-1)
+    if case == "count_is_capacity":
+        assert (counts[:, 0] == capacity).all()
+        assert bool(got.valid[:, 0].all()) and not bool(got.overflow[:, 0].any())
+    elif case == "capacity_1":
+        assert bool(got.overflow.all())
+    else:
+        x_lo, x_hi, y_lo, y_hi = ttab.region_spans(layout)[0]
+        assert y_hi - y_lo == 1 and bool(got.overflow.all())
+
+
 def test_tables_wrapper_rejects_cpu_tensors():
     rng = np.random.default_rng(14)
     weight, codes = _planes(rng, 1, 64, 96, 0.1)
