@@ -59,15 +59,12 @@
 // A block's work is a few dependent latencies (its loads, three barriers,
 // the gathers) whatever the region's size, so every shape fills the card:
 // NES has 4 tiles a region, cropped C64 5, splice's one region 485.  The
-// tile, 128 threads x 2 words (up to 4096 px), is the only one of those
-// timed (k2_tiles.py: 128x2, 256x1, 256x2, 128x4) within 10% of the
-// fastest at every main-path shape: 128x4 gains 3-6% at NES and collect
-// K=512/1024 but loses 18% on a 2-frame batch, 256x1 gains 1-7% at
-// K=16384, on 2 frames and at splice but loses 1.5-1.6x at NES and K=512
-// (its scan kernel takes 1.9x as long there, torch.profiler).  What is left
-// at NES K=640 (0.059 ms against a bound of 0.0186) is the two passes'
-// fixed costs: the count launch, ~0.017 ms, and the scan's loads and
-// barriers, ~0.020 ms at K=16 (PERF.md).
+// tile, 128 threads x 2 words (up to 4096 px), is fixed here; it was the
+// only one of four timed (128x2, 256x1, 256x2, 128x4; PERF.md) within 10%
+// of the fastest at every main-path shape.  What is left at NES K=640
+// (0.059 ms against a bound of 0.0186) is the two passes' fixed costs:
+// the count launch, ~0.017 ms, and the scan's loads and barriers, ~0.020
+// ms at K=16 (PERF.md).
 //
 // Ranks are the plain version's row-major ranks, so the tables equal it
 // (ops/tables.py build_tables_plain) bit for bit.
@@ -77,19 +74,10 @@
 
 namespace {
 
-// The tile: a scan block's threads and the words each holds.  Fixed here
-// (the wrapper's TILE_WORDS is their product); k2_tiles.py rebuilds this
-// file with other values to time them.
-#ifndef K2_THREADS
-#define K2_THREADS 128
-#endif
-#ifndef K2_WORDS
-#define K2_WORDS 2
-#endif
-
-constexpr int NT = K2_THREADS;  // threads of a scan block
-constexpr int M = K2_WORDS;     // words a scan thread holds
+constexpr int NT = 128;         // threads of a block
+constexpr int M = 2;            // words a thread holds
 constexpr int TILE = NT * M;    // words a tile
+constexpr int LIST = 16 * TILE; // a tile's pixels: every keypoint it can hold
 constexpr int NWARP = NT / 32;
 constexpr int MAX_R = 64;       // regions per layout the by-value spans hold
 constexpr int FILL_ROWS = 2048; // table rows a block fills at most
@@ -263,10 +251,7 @@ tables_count_kernel(const uint8_t* __restrict__ weight, int H, int W,
 // One tile's keypoints ranked row-major and the first `room` of them
 // written to rows 0.. of `out_codes` / `out_pos` (the region's rows from
 // the tile's rank base on).  Thread t holds the tile's words t M .. t M +
-// M - 1, the first at p0.  The kept ones pass through the list LIST at a
-// time.
-constexpr int LIST = 16 * TILE < 4096 ? 16 * TILE : 4096;
-
+// M - 1, the first at p0.  The kept ones pass through the list `kept`.
 __device__ __forceinline__ void scatter_tile(
     const uint4* __restrict__ codes, size_t frame, int W, const Region& g,
     const WordAt& p0, const Word (&v)[M], int room,
@@ -299,55 +284,49 @@ __device__ __forceinline__ void scatter_tile(
     in_tile += w;
   }
 
+  // the kept keypoints (ranked below n_out) into the list, in rank order,
+  // as packed (x, y)
   const int n_out = min(in_tile, room);
-  for (int r0 = 0; r0 < n_out; r0 += LIST) {
-    // the kept keypoints ranked in [r0, r0 + LIST) into the list, in rank
-    // order, as packed (x, y)
-    const int r1 = min(n_out, r0 + LIST);
-    int rk = rank;
-    WordAt p = p0;
+  WordAt p = p0;
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      uint32_t left = bits[m];
-      const int n = __popc(left);
-      if (rk < r1 && rk + n > r0) {
-        // (x, y) of the word's first byte, packed; x may be negative, so
-        // added, not or-ed: x + k of every kept byte is in the region
-        const uint32_t at = (static_cast<uint32_t>(g.y_lo + p.row) << 16) +
-                            static_cast<uint32_t>(g.x_lo + p.off());
-        for (int j = rk; left != 0u; ++j) {
-          const int k = __ffs(left) - 1;
-          left &= left - 1u;
-          if (j >= r0 && j < r1) kept[j - r0] = at + k;
-        }
+  for (int m = 0; m < M; ++m) {
+    uint32_t left = bits[m];
+    if (rank < n_out && left != 0u) {
+      // (x, y) of the word's first byte, packed; x may be negative, so
+      // added, not or-ed: x + k of every kept byte is in the region
+      const uint32_t at = (static_cast<uint32_t>(g.y_lo + p.row) << 16) +
+                          static_cast<uint32_t>(g.x_lo + p.off());
+      for (int j = rank; left != 0u && j < n_out; ++j) {
+        const int k = __ffs(left) - 1;
+        left &= left - 1u;
+        kept[j] = at + k;
       }
-      rk += n;
-      p = next_word(p, g, W);
     }
-    __syncthreads();
+    rank += __popc(bits[m]);
+    p = next_word(p, g, W);
+  }
+  __syncthreads();
 
-    // their codes gathered together (every load issued before any
-    // store), their rows stored coalesced
-    for (int j0 = r0 + tid; j0 < r1; j0 += 4 * NT) {
-      uint32_t xy[4];
-      uint4 code[4];
+  // their codes gathered together (every load issued before any store),
+  // their rows stored coalesced
+  for (int j0 = tid; j0 < n_out; j0 += 4 * NT) {
+    uint32_t xy[4];
+    uint4 code[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) xy[u] = kept[min(j0 + u * NT, r1 - 1) - r0];
+    for (int u = 0; u < 4; ++u) xy[u] = kept[min(j0 + u * NT, n_out - 1)];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        code[u] = __ldg(codes + frame + static_cast<size_t>(xy[u] >> 16) * W +
-                        (xy[u] & 0xffffu));
-      }
+    for (int u = 0; u < 4; ++u) {
+      code[u] = __ldg(codes + frame + static_cast<size_t>(xy[u] >> 16) * W +
+                      (xy[u] & 0xffffu));
+    }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int j = j0 + u * NT;
-        if (j < r1) {
-          out_codes[j] = code[u];
-          out_pos[j] = make_int2(xy[u] & 0xffffu, xy[u] >> 16);
-        }
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * NT;
+      if (j < n_out) {
+        out_codes[j] = code[u];
+        out_pos[j] = make_int2(xy[u] & 0xffffu, xy[u] >> 16);
       }
     }
-    __syncthreads();  // the list is rewritten by the next round
   }
 }
 
@@ -479,13 +458,36 @@ tables_scan_kernel(const uint8_t* __restrict__ weight,
   }
 }
 
+// Tiles of the largest of the R regions: its words over TILE, rounded up.
+int tiles_of(const Spans& s, int R) {
+  long long most = 0;
+  for (int r = 0; r < R; ++r) {
+    most = std::max(most, static_cast<long long>(s.v[r][3] - s.v[r][2]) *
+                              words_per_row(s.v[r][1] - s.v[r][0]));
+  }
+  return static_cast<int>((most + TILE - 1) / TILE);
+}
+
+Spans spans_of(const int32_t* spans, int R) {
+  Spans s = {};
+  for (int r = 0; r < R; ++r) {
+    for (int j = 0; j < 4; ++j) s.v[r][j] = spans[4 * r + j];
+  }
+  return s;
+}
+
 }  // namespace
 
-// C is the tiles of the largest region (its words over TILE, rounded up);
-// counts is scratch of [B, R, C] int4.
+// C, the tiles of the largest region: counts, remap_tables' scratch, is
+// [B, R, C] int4.  -1 for a layout of more than MAX_R regions.
+extern "C" int remap_tables_tiles(const int32_t* spans, int R) {
+  if (R <= 0 || R > MAX_R) return -1;
+  return tiles_of(spans_of(spans, R), R);
+}
+
 extern "C" int remap_tables(const uint8_t* weight, const int32_t* codes,
                             int B, int H, int W, const int32_t* spans, int R,
-                            int K, int C, int32_t* counts, int32_t* out_codes,
+                            int K, int32_t* counts, int32_t* out_codes,
                             int32_t* out_pos, uint8_t* out_valid,
                             int32_t* out_wcounts, uint8_t* out_overflow,
                             void* stream) {
@@ -493,16 +495,8 @@ extern "C" int remap_tables(const uint8_t* weight, const int32_t* codes,
       B > 65535 || H > 65535 || W > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Spans s = {};
-  long long most = 0;  // words of the largest region
-  for (int r = 0; r < R; ++r) {
-    for (int j = 0; j < 4; ++j) s.v[r][j] = spans[4 * r + j];
-    most = std::max(most, static_cast<long long>(s.v[r][3] - s.v[r][2]) *
-                              words_per_row(s.v[r][1] - s.v[r][0]));
-  }
-  if (C != (most + TILE - 1) / TILE) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Spans s = spans_of(spans, R);
+  const int C = tiles_of(s, R);
   const int G = std::max(C, (K + FILL_ROWS - 1) / FILL_ROWS);
   auto st = static_cast<cudaStream_t>(stream);
   tables_count_kernel<<<dim3(C, R, B), NT, 0, st>>>(

@@ -58,10 +58,12 @@ SIGNATURES = {
     # median, stream
     "remap_extract_medians": [_P, _I, _I, _I, _U64, _U64, _I, _I, _I, _I,
                               _P, _P],
-    # weight, codes, B, H, W, spans (host int32[R*4]), R, K, C (tiles a
-    # region), counts (scratch int32[B*R*C*4]), out_codes, out_pos,
-    # out_valid, out_wcounts, out_overflow, stream
-    "remap_tables": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P,
+    # spans (host int32[R*4]), R -> C, the tiles of the largest region
+    "remap_tables_tiles": [_P, _I],
+    # weight, codes, B, H, W, spans (host int32[R*4]), R, K, counts
+    # (scratch int32[B*R*C*4]), out_codes, out_pos, out_valid,
+    # out_wcounts, out_overflow, stream
+    "remap_tables": [_P, _P, _I, _I, _I, _P, _I, _I, _P,
                      _P, _P, _P, _P, _P, _P],
     # frames, vote (null for none), polarity, pos, F, H, W, dots (in
     # place), AH, AW, x_lo, y_lo, x_hi, y_hi, stream

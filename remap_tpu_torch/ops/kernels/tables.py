@@ -2,10 +2,11 @@
 Pallas kernel remap_tpu/ops/pallas/tables.py::build_tables_pallas).  Its
 plain version is ``remap_tpu_torch.ops.tables.build_tables_plain``.
 
-One design for every shape: tiles of ``TILE_WORDS`` 16-byte-aligned
-words of a region's rows (up to 4096 pixels) in each frame, in two
-launches: a block a tile counts its keypoints, then a block a tile ranks,
-gathers and writes them with its share of the table fill.  ``launches``
+One design for every shape: tiles of 16-byte-aligned words of a region's
+rows (up to 4096 pixels) in each frame, in two launches: a block a tile
+counts its keypoints, then a block a tile ranks, gathers and writes them
+with its share of the table fill.  The tile is the kernel's constant; the
+scratch of tile counts is sized by ``remap_tables_tiles``.  ``launches``
 counts calls: a call launches two kernels."""
 
 from __future__ import annotations
@@ -19,14 +20,6 @@ from remap_tpu_torch.ops.kernels import check_input, stream_handle
 
 #: regions a layout may have (the kernel takes the spans by value)
 MAX_REGIONS = 64
-#: 16-byte words of a region's rows a tile holds (K2_THREADS x K2_WORDS
-#: in csrc/tables.cu: 128 threads x 2)
-TILE_WORDS = 256
-
-
-def words_per_row(width: int) -> int:
-    """16-byte-aligned words a row of ``width`` bytes can span."""
-    return (width + 30) // 16
 
 
 def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
@@ -57,14 +50,13 @@ def build_tables_cuda(weight: torch.Tensor, codes: torch.Tensor,
     overflow = torch.empty((b, r), dtype=torch.bool, device=dev)
     if b == 0:
         return out_codes, out_pos, valid, wcounts, overflow
-    most = max((y_hi - y_lo) * words_per_row(x_hi - x_lo)
-               for x_lo, x_hi, y_lo, y_hi in spans)
-    n_tiles = -(-most // TILE_WORDS)
-    counts = torch.empty((b, r, n_tiles, 4), dtype=torch.int32, device=dev)
+    lib = _build.library()
     flat_spans = (ctypes.c_int32 * (4 * r))(*(v for s in spans for v in s))
-    rc = _build.library().remap_tables(
+    n_tiles = lib.remap_tables_tiles(ctypes.addressof(flat_spans), r)
+    counts = torch.empty((b, r, n_tiles, 4), dtype=torch.int32, device=dev)
+    rc = lib.remap_tables(
         weight.data_ptr(), codes.data_ptr(), b, h, w,
-        ctypes.addressof(flat_spans), r, k, n_tiles, counts.data_ptr(),
+        ctypes.addressof(flat_spans), r, k, counts.data_ptr(),
         out_codes.data_ptr(), out_pos.data_ptr(), valid.data_ptr(),
         wcounts.data_ptr(), overflow.data_ptr(), stream_handle(dev))
     _build.check(rc, "tables")

@@ -9,6 +9,8 @@ imports no JAX, so it also runs on a machine without JAX:
 (``--noconftest``: tests/conftest.py configures JAX).  The plain versions
 are held against the JAX package by the other tests/test_torch_*.py."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from remap_tpu_torch.utils import clips as testing
 from remap_tpu_torch.ops import cc as tcc
 from remap_tpu_torch.ops import fde as tfde
 from remap_tpu_torch.ops import kpe as tkpe
+from remap_tpu_torch.ops import _build
 from remap_tpu_torch.ops import tables as ttab
 from remap_tpu_torch.ops.kernels import blit as kblit
 from remap_tpu_torch.ops.kernels import cc as kcc
@@ -83,6 +86,13 @@ def _keypoints_at(rng, b, h, w, where, device):
             torch.as_tensor(codes, device=device))
 
 
+def _tiles(spans):
+    """The kernel's tile count for a layout: those of its largest region."""
+    flat = (ctypes.c_int32 * (4 * len(spans)))(*(v for s in spans for v in s))
+    return _build.library().remap_tables_tiles(ctypes.addressof(flat),
+                                               len(spans))
+
+
 def _tables_case(case, device):
     """(weight, codes, layout, capacity) of a K2 case."""
     rng = np.random.default_rng(15)
@@ -114,11 +124,18 @@ def _tables_case(case, device):
     if case == "tile_boundary":      # keypoint K the first tile's last
         h, w = 100, 96               # pixel, keypoint K + 1 the next's first
         layout = make_layout(w, h, 1, 1, 0)
-        x_lo, x_hi, y_lo, _ = ttab.region_spans(layout)[0]
+        x_lo, x_hi, y_lo, y_hi = ttab.region_spans(layout)[0]
         rw, capacity = x_hi - x_lo, 300
+        # csrc/tables.cu's tiling: a tile is 256 16-byte-aligned words, a
+        # row of rw bytes spans (rw + 30) // 16 of them
+        tile_words, per_row = 256, (rw + 30) // 16
+        assert _tiles([(0, 1, 0, tile_words)]) == 1
+        assert _tiles([(0, 1, 0, tile_words + 1)]) == 2
+        assert _tiles([(x_lo, x_hi, y_lo, y_hi)]) == -(
+            -(y_hi - y_lo) * per_row // tile_words)
         # the second tile starts at word k of region row `row`; rows of 96
         # bytes keep every frame's words at the same columns
-        row, k = divmod(ktab.TILE_WORDS, ktab.words_per_row(rw))
+        row, k = divmod(tile_words, per_row)
         start = (y_lo + row) * w + x_lo
         tile = row * rw + (start // 16 + k) * 16 - start
         assert 0 < tile - row * rw < rw
