@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (non-zero exit):
 
-1. build: compiles remap_tpu_torch/csrc/*.cu with nvcc (sm_90a).
+1. build: compiles remap_tpu_torch/csrc/*.cu with nvcc (sm_90a), and
+   native/feed.cpp and native/codec.cpp with their Makefile.
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, with exact equality (every output is an integer), timed
    with CUDA events beside the plain version (queued behind a spin
@@ -96,6 +97,24 @@ Phases, each of which raises on failure (non-zero exit):
    (torch.profiler); K1 and K2 at the merged world canvas's snippet shape
    (1x1 layout, K2 at the count-sized capacity) against their plain
    versions.
+10. cli: remap_tpu_torch.cli.main in this process, counts zeroed just
+   before and read just after, on (1) that session written as numbered
+   raw files at PipelineConfig()'s flags with --perf and
+   --checkpoint-dir: maps byte-equal to phase 9's, PNGs decoding to
+   them, the window scan and the first match pass served only by the
+   native packed reader (every frame, in order; no NumPy packing, no
+   plain read), every kernel launched; then --resume from "filtered"
+   and, that deleted, from "collect", with raw feeds whose reads raise,
+   to the same maps; (2) a worn platformer (utils.gameplay.play_session,
+   1024 frames at 388x312, then utils.wear.worn) at the CLI's defaults:
+   the world map's interior agreeing with the session's world at
+   WORN_AGREEMENT or more, the JAX package's figure on the CPU
+   (tools/worn_reference.py); (3) phase 9's 64-frame cut as RGB PNGs
+   with --format png: the maps of the same frames as raw files.
+   Printed: the CLI's stage seconds (PerfCallbacks) beside phase 9's,
+   the first match pass's device idle share fed and in memory, the
+   checkpoint seconds, both resumes' seconds, the PNG reader's ms a
+   frame.
 
 The line before the last is a JSON object of the kernels: for each, its
 launches on the main path that runs it, its largest difference from the
@@ -125,6 +144,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -145,6 +165,16 @@ NOISE_AT = 1000            # its noise frame (a fragment break)
 CPU_FRAMES = 256           # its frames repeated on the CPU
 REPEAT = 256               # frames of the repetitive-texture clip
 SHORT = 64                 # map phase: frames built on the card and the CPU
+GAMEPLAY = 1024            # cli phase: frames of the platformer session
+GAMEPLAY_SEED = 3          # its play_session seed, and the wear seed and
+WEAR_SEED = 11             # speck area (in the action area) of the JAX
+SPECK_REGION = (10, 276, 10, 376)   # package's wear differential
+#: the worn session's world map against the world (world_agreement):
+#: the JAX package's share on the CPU, 528,119 of 568,703 px
+#: (tools/worn_reference.py), which the port's card run must reach.  The
+#: map is exact left of column ~1000 and 3 px off right of it: both
+#: packages register a stretch of the worn frames 3 px off the camera
+WORN_AGREEMENT = 0.9286
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SPIN_HZ = 2.0e9            # spin cycles a second, above the H100's clock
 
@@ -1090,16 +1120,11 @@ def same_collect(a, b, what: str) -> None:
             raise AssertionError(f"{what}: fragment canvases differ")
 
 
-def match_pass_idle(dev, cropped, cfg, pass_ms: float, batches: int):
-    """The match pass's device idle share two ways: one batch's device
-    work (upload excluded: unpack, the collect step, the scalars' copy),
-    timed alone behind a spin kernel, times the batches over the pass's
-    wall; and a torch.profiler window over a match pass of the first
-    1024 frames (device time of every kernel and copy over its wall,
-    the profiler's own host cost included), and its device operations
-    (kernels and copies) per batch."""
+def one_batch_ms(dev, cropped, cfg) -> float:
+    """One match-pass batch's device work on the first ``frame_batch``
+    cropped frames (upload excluded: unpack, the collect step, the
+    scalars' copy), timed alone behind a spin kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from remap_tpu_torch.core.regions import make_layout
     from remap_tpu_torch.pipeline import collect
@@ -1117,7 +1142,25 @@ def match_pass_idle(dev, cropped, cfg, pass_ms: float, batches: int):
     def one_batch():
         return step(unpack_nibbles_device(packed, w), carry)
 
-    batch_ms = time_ms(one_batch, 10)
+    return time_ms(one_batch, 10)
+
+
+def match_pass_idle(dev, cropped, cfg, pass_ms: float, batches: int):
+    """The match pass's device idle share two ways: :func:`one_batch_ms`
+    times the batches over the pass's wall; and a torch.profiler window
+    over a match pass of the first 1024 frames (device time of every
+    kernel and copy over its wall, the profiler's own host cost
+    included), and its device operations (kernels and copies) per
+    batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from remap_tpu_torch.core.regions import make_layout
+    from remap_tpu_torch.pipeline import collect
+
+    h, w = cropped.shape[1:]
+    layout = make_layout(w, h, cfg.grid_width, cfg.grid_height,
+                         cfg.grid_overlap)
+    batch_ms = one_batch_ms(dev, cropped, cfg)
     busy = batch_ms * batches / pass_ms
     frames = cropped[:1024]
     collect.match_pass(frames, layout, cfg, None, dev)
@@ -1459,49 +1502,6 @@ def session_world(seed: int = 12) -> np.ndarray:
                             np.random.default_rng(seed))
 
 
-def decode_png(path: str) -> np.ndarray:
-    """An 8-bit RGB PNG as ``[H, W, 3]`` uint8 with zlib alone: the IDAT
-    chunks joined and inflated, each scanline's filter undone."""
-    import struct
-    import zlib
-
-    data = open(path, "rb").read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path}: not a PNG")
-    i, idat, w, h = 8, b"", 0, 0
-    while i < len(data):
-        n, tag = struct.unpack(">I4s", data[i:i + 8])
-        body = data[i + 8:i + 8 + n]
-        if tag == b"IHDR":
-            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
-                                                                body)
-            if (depth, ctype, interlace) != (8, 2, 0):
-                raise AssertionError(f"{path}: not 8-bit RGB")
-        elif tag == b"IDAT":
-            idat += body
-        i += 12 + n
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    out = np.zeros((h, 3 * w), np.int64)
-    for y in range(h):
-        kind, line = raw[y, 0], raw[y, 1:].astype(np.int64)
-        up = out[y - 1] if y else np.zeros(3 * w, np.int64)
-        if kind in (0, 2):
-            out[y] = (line + (up if kind == 2 else 0)) & 255
-            continue
-        for x in range(3 * w):      # sub, average, paeth: left to right
-            a = out[y, x - 3] if x >= 3 else 0
-            b, c = up[x], (up[x - 3] if x >= 3 else 0)
-            if kind == 1:
-                p = a
-            elif kind == 3:
-                p = (a + b) // 2
-            else:
-                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                p = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-            out[y, x] = (line[x] + p) & 255
-    return out.reshape(h, w, 3).astype(np.uint8)
-
-
 @contextlib.contextmanager
 def recorded_splice(dev, rungs: list, snippets: list):
     """Record every cellular match splice runs (multiplicity, table rows K,
@@ -1621,17 +1621,22 @@ def same_build(a, b, what: str) -> None:
             raise AssertionError(f"{what}: spliced fragments differ")
 
 
-def world_agreement(res, world, path, crop) -> tuple:
+def world_agreement(res, world, path, crop, margins=None) -> tuple:
     """(agreeing pixels, compared pixels) of the world fragment's map
     against the session's world, aligned by frame record 0: the map's
     interior (the 6-px ring and one more right column excluded), where
-    the filtered canvas holds votes and the world is in bounds."""
-    from remap_tpu_torch.pipeline import clean
+    the filtered canvas holds votes and the world is in bounds.
+    ``path[0]`` is the world position of frame 0's pixel (0, 0);
+    ``margins`` gives a fragment's empty margins (the port's
+    ``clean.margins_of_fragment`` by default)."""
+    if margins is None:
+        from remap_tpu_torch.pipeline import clean
 
+        margins = clean.margins_of_fragment
     i = next(k for k, f in enumerate(res.fragments)
              if any(r.number == 0 for r in f.frames))
-    frag, image = res.fragments[i], res.maps[i]
-    left, top, _, _ = clean.margins_of_fragment(frag)
+    frag, image = res.fragments[i], np.asarray(res.maps[i])
+    left, top, _, _ = margins(frag)
     p0 = next(r.position for r in frag.frames if r.number == 0)
     covered = frag.dots.any(axis=2)[top:top + image.shape[0],
                                     left:left + image.shape[1]]
@@ -1804,7 +1809,7 @@ def map_phase(dev, counters: dict, smi: str):
         for i, image in enumerate(res.maps):
             out = f"{tmp}/out{i}.png"
             png.write_map(out, image)
-            if not np.array_equal(decode_png(out),
+            if not np.array_equal(png.decode_png(out),
                                   palette.native_to_rgb(image)):
                 raise AssertionError(f"map phase: out{i}.png does not "
                                      "decode to the map's colours")
@@ -1849,7 +1854,351 @@ def map_phase(dev, counters: dict, smi: str):
                        - by["collect"]["launches"][k] for k in counters}
     entries["extract"]["launches"] = splice_launches["extract"]
     entries["tables"]["launches"] = splice_launches["tables"]
-    return list(entries.values())
+    return list(entries.values()), res.maps, stages
+
+
+def worn_session(gameplay, wear):
+    """The cli phase's worn platformer: ``gameplay.play_session`` at the
+    C64 screen (312x388), GAMEPLAY frames, through ``wear.worn`` (tears,
+    specks in the action area, lag duplicates, drops).  Takes the modules,
+    so the JAX package's originals make the same session
+    (tools/worn_reference.py)."""
+    session = gameplay.play_session(seed=GAMEPLAY_SEED, n_frames=GAMEPLAY,
+                                    frame_hw=(312, 388))
+    return wear.worn(session, seed=WEAR_SEED, speck_region=SPECK_REGION)
+
+
+def session_origins(session) -> list:
+    """The world position of each frame's pixel (0, 0): the camera less
+    the action area's place in the frame (play_session's 8-px border)."""
+    return [(x - 8, y - 8) for x, y in session.camera]
+
+
+def write_raw(directory: str, frames) -> float:
+    """Frames as numbered raw dumps (one byte a pixel); returns seconds."""
+    t0 = time.perf_counter()
+    os.makedirs(directory)
+    for i, frame in enumerate(frames):
+        np.ascontiguousarray(frame).tofile(os.path.join(directory, str(i)))
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def cli_probe(dev):
+    """Record what a CLI run's build does: its BuildResult; each window
+    scan and match pass (wall ms between two synchronisations, whether a
+    feed served it, the packed feed reads and the NumPy packings made
+    meanwhile); every packed feed read (start, frames) and every plain
+    frame read of a raw feed."""
+    from remap_tpu_torch.io import frames as frames_io
+    from remap_tpu_torch.pipeline import builder, collect, window
+
+    feed_cls = frames_io.RawDirectoryFeed
+    rec = {"builds": [], "scans": [], "passes": [], "packed": [],
+           "reads": 0, "packs": 0}
+    real = (builder.build, window.scan, collect.match_pass,
+            feed_cls.read_packed_batch, feed_cls.read,
+            window.pack_nibbles_batch, collect.pack_nibbles_batch)
+
+    def build(*args, **kwargs):
+        res = real[0](*args, **kwargs)
+        rec["builds"].append(res)
+        return res
+
+    def stage(kind, fn, frames, *args):
+        packs, reads = rec["packs"], len(rec["packed"])
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn(frames, *args)
+        sync(dev)
+        rec[kind].append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "feed": hasattr(frames, "read_packed_batch"),
+            "packs": rec["packs"] - packs,
+            "packed": rec["packed"][reads:]})
+        return out
+
+    def read_packed_batch(self, start, count, native=True):
+        out = real[3](self, start, count, native)
+        rec["packed"].append((start, len(out), native))
+        return out
+
+    def read(self, index):
+        rec["reads"] += 1
+        return real[4](self, index)
+
+    def packer(fn):
+        def pack(imgs):
+            rec["packs"] += 1
+            return fn(imgs)
+        return pack
+
+    builder.build = build
+    window.scan = lambda frames, *a, **k: stage(
+        "scans", lambda f: real[1](f, *a, **k), frames)
+    collect.match_pass = lambda frames, *a: stage("passes", real[2],
+                                                  frames, *a)
+    feed_cls.read_packed_batch = read_packed_batch
+    feed_cls.read = read
+    window.pack_nibbles_batch = packer(real[5])
+    collect.pack_nibbles_batch = packer(real[6])
+    try:
+        yield rec
+    finally:
+        (builder.build, window.scan, collect.match_pass,
+         feed_cls.read_packed_batch, feed_cls.read,
+         window.pack_nibbles_batch, collect.pack_nibbles_batch) = real
+
+
+@contextlib.contextmanager
+def refusing_feeds():
+    """Raw feeds whose reads raise (construction still lists the
+    directory): a resume must not read a frame."""
+    from remap_tpu_torch.io import frames as frames_io
+
+    cls = frames_io.RawDirectoryFeed
+    real = cls.read, cls.read_packed_batch, cls.__iter__
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a resume read the frame directory")
+
+    cls.read = cls.read_packed_batch = cls.__iter__ = refuse
+    try:
+        yield
+    finally:
+        cls.read, cls.read_packed_batch, cls.__iter__ = real
+
+
+def run_cli(argv: list) -> tuple:
+    """``remap_tpu_torch.cli.main(argv)`` in this process (so the launch
+    counts see it), its standard output captured: (exit code, output
+    lines, wall seconds)."""
+    import io
+
+    from remap_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def written_maps(lines: list, maps, what: str) -> None:
+    """The CLI's ``wrote`` lines name one PNG a map, each decoding to the
+    map's colours."""
+    from remap_tpu_torch.core import palette
+    from remap_tpu_torch.io import png
+
+    paths = [ln.split()[1] for ln in lines if ln.startswith("wrote ")]
+    if len(paths) != len(maps):
+        raise AssertionError(f"{what}: {len(paths)} PNGs for {len(maps)} "
+                             "maps")
+    for path, image in zip(paths, maps):
+        if not np.array_equal(png.decode_png(path),
+                              palette.native_to_rgb(image)):
+            raise AssertionError(f"{what}: {path} does not decode to the "
+                                 "map's colours")
+
+
+def same_maps(got, want, what: str) -> None:
+    if len(got) != len(want) or any(
+            a.shape != b.shape or a.tobytes() != b.tobytes()
+            for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: maps differ")
+
+
+def served_in_order(reads: list, start: int, what: str) -> int:
+    """Packed feed reads that follow each other from ``start`` with the
+    native reader; returns the frames they served."""
+    at = start
+    for first, n, native in reads:
+        if first != at or not native:
+            raise AssertionError(f"{what}: packed read {first} (native "
+                                 f"{native}) where frame {at} was due")
+        at += n
+    return at - start
+
+
+def perf_lines(lines: list) -> str:
+    return "; ".join(ln.strip() for ln in lines if ln.startswith("["))
+
+
+def cli_phase(dev, counters: dict, smi: str, in_memory_maps,
+              in_memory_stages) -> None:
+    """The port's CLI (``remap_tpu_torch.cli.main``, in this process) on
+    three inputs.  (1) The map phase's 2048-frame session as numbered raw
+    files at PipelineConfig()'s flags with --perf and --checkpoint-dir,
+    counts zeroed just before and read just after: the maps byte-equal to
+    the map phase's in-memory build, the PNGs decoding to them, every
+    batch of the window scan and the first match pass served by the
+    native packed reader with no NumPy packing and no plain read, every
+    kernel launched; then resumed from "filtered" and, that deleted,
+    from "collect", with feeds whose reads raise, to the same maps.
+    (2) A worn platformer session (utils.gameplay, utils.wear) at the
+    CLI's defaults: the world map's interior agreeing with the session's
+    world at WORN_AGREEMENT or more.  (3) The map phase's 64-frame cut as
+    RGB PNGs (io.png) with --format png: the maps of the same frames as
+    raw files."""
+    import shutil
+    import tempfile
+
+    from remap_tpu_torch.config import PipelineConfig
+    from remap_tpu_torch.core.regions import make_layout
+    from remap_tpu_torch.io import frames as frames_io
+    from remap_tpu_torch.io import png
+    from remap_tpu_torch.pipeline import collect
+    from remap_tpu_torch.pipeline.state import FrameStore
+    from remap_tpu_torch.utils import gameplay, wear
+
+    cfg = PipelineConfig()
+    frames, _ = session_clip()
+    n, b = len(frames), cfg.frame_batch
+    # PipelineConfig()'s values where the CLI's defaults differ
+    flags = ["--region-capacity", cfg.region_capacity, "--vote-radius",
+             cfg.vote_radius]
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, ckpt = f"{tmp}/session", f"{tmp}/ckpt"
+        write_s = write_raw(raw, frames)
+        argv = [raw, *flags, "--perf", "--checkpoint-dir", ckpt,
+                "--out-prefix", f"{tmp}/out"]
+        for k in counters.values():
+            k.launches = 0
+        with cli_probe(dev) as rec:
+            rc, lines, wall_s = run_cli(argv)
+        launches = {name: k.launches for name, k in counters.items()}
+        if rc != 0:
+            raise AssertionError(f"cli: exit code {rc}")
+        res = rec["builds"][-1]
+        same_maps(res.maps, in_memory_maps, "cli vs the in-memory build")
+        written_maps(lines, res.maps, "cli")
+        for name, count in launches.items():
+            if count == 0:
+                raise AssertionError(f"cli phase: {name} never launched")
+        scan, first = rec["scans"][0], rec["passes"][0]
+        if not (scan["feed"] and first["feed"]) or rec["reads"] or (
+                scan["packs"] + first["packs"]):
+            raise AssertionError(
+                f"cli: window fed {scan['feed']}, first pass fed "
+                f"{first['feed']}, {rec['reads']} plain reads, "
+                f"{scan['packs'] + first['packs']} NumPy packings")
+        if scan["packed"][0][:2] != (0, 1):
+            raise AssertionError("cli: the window's first read is not "
+                                 "frame 0 alone")
+        scanned = 1 + served_in_order(scan["packed"][1:], 1, "cli window")
+        if served_in_order(first["packed"], 0, "cli match pass") != n:
+            raise AssertionError("cli: the match pass's reads do not "
+                                 f"serve all {n} frames")
+        checkpoints = [ln for ln in lines if ln.startswith("[checkpoint")]
+        if len(checkpoints) != 2:
+            raise AssertionError(f"cli: checkpoint lines {checkpoints}")
+        log(f"cli session: {n} raw files [{frames.shape[1]}x"
+            f"{frames.shape[2]}] written in {write_s:.2f} s; cli.main at "
+            f"PipelineConfig()'s flags with --perf --checkpoint-dir: rc 0 "
+            f"in {wall_s:.3f} s ({n / wall_s:.1f} frames/s of wall), "
+            f"{len(res.maps)} maps byte-equal to the map phase's in-memory "
+            f"build, PNGs decode to them; the native packed reader served "
+            f"the window's {scanned} frames in {len(scan['packed'])} reads "
+            f"and the first match pass's {n} in {len(first['packed'])} "
+            f"reads, no NumPy packing, no plain read; launches {launches} "
+            f"(the in-memory build's {in_memory_stages[-1]['launches']}); "
+            f"on {smi}")
+        log(f"cli stages (PerfCallbacks: no synchronisation, the match "
+            f"passes and the window timed between two): {perf_lines(lines)}"
+            f"; the in-memory build's (map phase, synchronised): "
+            + ", ".join(f"{s['stage']} {s['ms'] / 1e3:.2f} s"
+                        for s in in_memory_stages) + f"; on {smi}")
+        # the first match pass's idle share, fed and in memory
+        crop = res.window.crop
+        cropped = np.ascontiguousarray(
+            frames[:, crop.top:crop.bottom, crop.left:crop.right])
+        batch_ms = one_batch_ms(dev, cropped, cfg)
+        batches = -(-n // b)
+        h, w = cropped.shape[1:]
+        layout = make_layout(w, h, cfg.grid_width, cfg.grid_height,
+                             cfg.grid_overlap)
+        store = FrameStore(h, w, device_budget=collect._store_budget(
+            cfg, dev), device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        collect.match_pass(iter(cropped), layout, cfg, store, dev)
+        sync(dev)
+        mem_ms = (time.perf_counter() - t0) * 1e3
+        log(f"cli first match pass: one batch's device work "
+            f"{batch_ms:.3f} ms x {batches} batches; fed by the native "
+            f"reader {first['ms']:.1f} ms (idle "
+            f"{1 - batch_ms * batches / first['ms']:.3f}), in memory "
+            f"(numpy packing on the main thread) {mem_ms:.1f} ms (idle "
+            f"{1 - batch_ms * batches / mem_ms:.3f}); window scan fed "
+            f"{scan['ms']:.1f} ms; checkpoints (on a worker thread): "
+            f"{'; '.join(checkpoints)}; on {smi}")
+
+        # resume twice, reading no frame
+        for tag in ("filtered", "collect"):
+            if tag == "collect":
+                shutil.rmtree(f"{ckpt}/filtered")
+            with refusing_feeds(), cli_probe(dev) as rrec:
+                rc, rlines, rwall = run_cli(argv + ["--resume"])
+            if rc != 0:
+                raise AssertionError(f"cli resume from {tag}: exit {rc}")
+            same_maps(rrec["builds"][-1].maps, res.maps,
+                      f"cli resume from {tag}")
+            written_maps(rlines, res.maps, f"cli resume from {tag}")
+            log(f"cli resume from {tag}: rc 0 in {rwall:.3f} s, maps "
+                f"byte-equal, no frame read; {perf_lines(rlines)}; on {smi}")
+
+        # a worn platformer session at the CLI's defaults
+        session = worn_session(gameplay, wear)
+        write_raw(f"{tmp}/worn", session.frames)
+        with cli_probe(dev) as wrec:
+            rc, wlines, wwall = run_cli([f"{tmp}/worn", "--out-prefix",
+                                         f"{tmp}/worn", "--perf"])
+        if rc != 0:
+            raise AssertionError(f"cli worn session: exit code {rc}")
+        wres = wrec["builds"][-1]
+        written_maps(wlines, wres.maps, "cli worn session")
+        agree, compared = world_agreement(wres, session.world,
+                                          session_origins(session),
+                                          wres.window.crop)
+        if agree < WORN_AGREEMENT * compared:
+            raise AssertionError(f"cli worn session: the world map agrees "
+                                 f"at {agree} of {compared} px")
+        log(f"cli worn platformer: {len(session.frames)} frames (seed "
+            f"{GAMEPLAY_SEED}, wear {WEAR_SEED}) at the CLI's defaults: rc "
+            f"0 in {wwall:.3f} s, {len(wres.maps)} maps "
+            f"{[m.shape for m in wres.maps]}, the world map's interior "
+            f"equals the world at {agree} of {compared} px "
+            f"({agree / compared:.4%}; gate {WORN_AGREEMENT:.4%}); "
+            f"{perf_lines(wlines)}; on {smi}")
+
+        # the 64-frame cut as PNG frames against the same frames as raw
+        lo = NOISE_AT - SHORT // 2
+        short = frames[lo:lo + SHORT]
+        write_raw(f"{tmp}/short_raw", short)
+        os.makedirs(f"{tmp}/short_png")
+        for i, frame in enumerate(short):
+            png.write_map(f"{tmp}/short_png/{i}.png", frame)
+        feed = frames_io.PngDirectoryFeed(f"{tmp}/short_png")
+        t0 = time.perf_counter()
+        read = [feed.read(i) for i in range(len(feed))]
+        read_ms = (time.perf_counter() - t0) * 1e3 / len(feed)
+        if not np.array_equal(np.stack(read), short):
+            raise AssertionError("cli png: the reader's frames differ")
+        out = {}
+        for kind, extra in (("raw", []), ("png", ["--format", "png"])):
+            with cli_probe(dev) as prec:
+                rc, plines, _ = run_cli([f"{tmp}/short_{kind}", *flags,
+                                         *extra, "--out-prefix",
+                                         f"{tmp}/short_{kind}_"])
+            if rc != 0:
+                raise AssertionError(f"cli {kind} cut: exit code {rc}")
+            out[kind] = prec["builds"][-1].maps
+            written_maps(plines, out[kind], f"cli {kind} cut")
+        same_maps(out["png"], out["raw"], "cli png vs raw")
+        log(f"cli png: {SHORT} RGB PNG frames (io.png.write_map) with "
+            f"--format png: {len(out['png'])} maps byte-equal to the same "
+            f"frames as raw files; the PNG reader {read_ms:.2f} ms a "
+            f"{short.shape[2]}x{short.shape[1]} frame (host); on {smi}")
 
 
 def main() -> int:
@@ -1859,6 +2208,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 1
+    from remap_tpu_torch.io import native
     from remap_tpu_torch.ops import _build
     from remap_tpu_torch.ops.kernels import blit, cc, extract, tables
     from remap_tpu_torch.utils.clips import make_clip
@@ -1876,6 +2226,11 @@ def main() -> int:
     path, seconds, nvcc_log = _build.build()
     _build.library()
     log(f"build: {path.name} in {seconds:.1f} s")
+    t0 = time.perf_counter()
+    for name in ("libremapfeed.so", "libremapcodec.so"):
+        native.library(name)
+    log(f"build: native/feed.cpp and native/codec.cpp by make in "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in nvcc_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -1947,13 +2302,16 @@ def main() -> int:
         "blit": blit.blit_frames_cuda,
         "cc_labels": cc.label_components_cuda}, smi)
 
-    kernels += map_phase(dev, {
+    map_counters = {
         "extract": extract.extract_dense_cuda,
         "tables": tables.build_tables_cuda,
         "blit": blit.blit_frames_cuda,
         "cc_labels": cc.label_components_cuda,
         "extract_medians": extract.extract_medians_cuda,
-        "cc_stats": cc.label_stats_cuda}, smi)
+        "cc_stats": cc.label_stats_cuda}
+    entries, maps, stages = map_phase(dev, map_counters, smi)
+    kernels += entries
+    cli_phase(dev, map_counters, smi, maps, stages)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 The port runs on one NVIDIA GPU, with a hand-written CUDA kernel
 (``csrc/*.cu``, built by ``nvcc`` for ``sm_90a`` at first use) in place of
 each Pallas kernel of the JAX package.  Ported: the streaming
-align+stitch step, and the whole map build as the JAX package's
+align+stitch step, the whole map build as the JAX package's
 ``pipeline.builder`` runs it (window scan -> crop -> collect -> splice ->
-foreground -> clean), which writes maps (``io.png``).
+foreground -> clean, with stage checkpoints and resume), which writes
+maps (``io.png``), and its command line, ``python -m
+remap_tpu_torch.cli <frames-dir>``.
 
 - ``ops.kpe``       keypoint/median extraction, and its medians-only
   instantiation (kernel ``csrc/extract.cu``)
@@ -23,13 +25,19 @@ foreground -> clean), which writes maps (``io.png``).
   ``pipeline.splice``, ``pipeline.foreground``, ``pipeline.clean``,
   ``pipeline.builder``  the stages and the orchestrator;
   ``pipeline.state``  the frame store and fragments
-- ``io.png``        map output
+- ``io.png``        map output and the PNG frame reader
+- ``io.frames``, ``io.codec``, ``io.checkpoint``  frame feeds (the native
+  packed reader ``native/feed.cpp``), the RLE codec (``native/codec.cpp``),
+  stage checkpoints in the JAX package's format; ``io.native`` builds
+  ``native/`` at first use
+- ``cli``           the command line
 - ``convert``       carries JAX stream state, fragments and configs (as
   numpy and plain values) into the port, and numpy back
 - ``config``, ``core.regions``, ``core.palette``, ``core.geometry``,
-  ``spec.arf``, ``utils.clips``  the port's own copies of the JAX
-  package's config, grid layout, palette, rectangles, artifact-filter
-  spec and clip makers
+  ``spec.arf``, ``spec.nic``, ``utils.clips``, ``utils.gameplay``,
+  ``utils.wear``  the port's own copies of the JAX package's config,
+  grid layout, palette, rectangles, artifact-filter and RLE specs, clip
+  makers, session simulator and capture-wear models
 
 Dispatch follows the tensors: CUDA tensors run the kernels, CPU tensors
 run each kernel's plain PyTorch version.  The entry points run on the

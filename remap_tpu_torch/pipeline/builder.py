@@ -4,21 +4,27 @@ remap_tpu/pipeline/builder.py, mpb.hpp:28-41).
 ``build()`` = window scan -> cropped re-feed -> collect -> splice ->
 foreground filter -> artifact clean -> native-code map images, all on one
 device.  Every stage boundary hands its full intermediate state to the
-callbacks object (mpb.hpp:44-77).  Not ported yet: stage checkpoints
-(``checkpoint_dir``, ``resume``) and feeds that crop natively (an object
-with ``with_crop``); both raise ``NotImplementedError``.
+callbacks object (mpb.hpp:44-77), and can checkpoint fragments to disk
+(``io.checkpoint``, the reference's unused ful.hpp made real) for a
+later ``resume``.  A feed that crops natively (``io.frames``) is re-fed
+cropped, so collect reads its packed batches straight off the native
+reader.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Iterable, List, Optional, Sequence
 
 import numpy as np
 
 from remap_tpu_torch.config import PipelineConfig
+from remap_tpu_torch.core.geometry import Rect
 from remap_tpu_torch.device import get_device
+from remap_tpu_torch.io import checkpoint
 from remap_tpu_torch.pipeline import clean as clean_stage
 from remap_tpu_torch.pipeline import collect as collect_stage
 from remap_tpu_torch.pipeline import foreground as fg_stage
@@ -42,6 +48,12 @@ class Callbacks:
     def on_filter(self, fragments: List[Fragment]) -> None: ...
 
     def on_clean(self, images: List[np.ndarray]) -> None: ...
+
+    def on_checkpoint(self, tag: str, seconds: float) -> None:
+        """After a stage checkpoint is written (tag "collect" or
+        "filtered"), from the thread that wrote it: the save's seconds,
+        which overlap the following stages."""
+        ...
 
 
 class PerfCallbacks(Callbacks):
@@ -75,6 +87,10 @@ class PerfCallbacks(Callbacks):
     def on_clean(self, images) -> None:
         self._stage("arf", 0)
 
+    def on_checkpoint(self, tag, seconds) -> None:
+        # written on a worker thread beside the stages: not a stage's time
+        print(f"[checkpoint {tag}] {seconds:6.2f} s")
+
 
 @dataclasses.dataclass
 class BuildResult:
@@ -82,6 +98,65 @@ class BuildResult:
     window: Optional[WindowInfo]
     fragments: List[Fragment]
     collect: Optional[collect_stage.CollectResult]
+
+
+def _save_checkpoint(cb: Callbacks, checkpoint_dir: Optional[str], tag: str,
+                     fragments: List[Fragment],
+                     include_store: bool = True) -> Optional[Future]:
+    """Checkpoint ``fragments`` under ``checkpoint_dir``: the snapshot
+    (device canvases queued for copying, numbers, positions) is taken here
+    at the stage boundary, and the compression and writes run on a worker
+    thread while the next stages run.  Returns the write's future (its
+    ``result()`` re-raises a failed write), or None without a
+    directory."""
+    if not checkpoint_dir:
+        return None
+    snap = checkpoint.snapshot(fragments, include_store)
+
+    def work():
+        t0 = time.perf_counter()
+        checkpoint.write(checkpoint_dir, tag, snap)
+        cb.on_checkpoint(tag, time.perf_counter() - t0)
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(work)
+    pool.shutdown(wait=False)
+    return future
+
+
+def _checkpoint_stage(checkpoint_dir: str) -> Optional[str]:
+    """The latest resumable stage saved under ``checkpoint_dir``, if any."""
+    for tag in ("filtered", "collect"):
+        if os.path.exists(os.path.join(checkpoint_dir, tag, "meta.json")):
+            return tag
+    return None
+
+
+def _join(future: Optional[Future]) -> None:
+    if future is not None:
+        future.result()
+
+
+def _finish(filtered: List[Fragment], cfg: PipelineConfig, cb: Callbacks,
+            dev, window, col, pending: Optional[Future]) -> BuildResult:
+    """The artifact clean, after the ``filtered`` checkpoint (if any) has
+    been queued; waits for the checkpoint before returning."""
+    maps = clean_stage.clean(filtered, cfg, device=dev)
+    cb.on_clean(maps)
+    _join(pending)
+    return BuildResult(maps=maps, window=window, fragments=filtered,
+                       collect=col)
+
+
+def _feed_crop(probe, crop: Rect) -> Rect:
+    """The window's crop composed with the feed's own: the window scan saw
+    the feed's already-cropped frames, so the crop is offset by the feed's
+    crop origin rather than replacing it."""
+    base = getattr(probe, "crop", None)
+    if base is None:
+        return crop
+    return Rect(left=base.left + crop.left, top=base.top + crop.top,
+                right=base.left + crop.right, bottom=base.top + crop.bottom)
 
 
 def build(
@@ -95,11 +170,33 @@ def build(
     """The maps of the frames ``frames_factory()`` yields, on ``device``
     (CUDA unless the caller asks for the CPU).  ``frames_factory()`` must
     yield the frame stream anew on each call: the reference re-feeds the
-    frames after the window scan (mpb.hpp:32)."""
-    if checkpoint_dir or resume:
-        raise NotImplementedError("stage checkpoints are not ported yet")
+    frames after the window scan (mpb.hpp:32).
+
+    With ``checkpoint_dir``, the fragments after collect ("collect", with
+    the frame store) and after the foreground filter ("filtered", without
+    it) are saved there.  With ``resume`` too, the build restarts from the
+    latest saved stage: "filtered" runs the artifact clean alone,
+    "collect" skips the window scan and collect (and saves "filtered"
+    again); neither reads a frame.  With no checkpoint there, it runs in
+    full."""
     cb = callbacks or Callbacks()
     dev = get_device(device)
+
+    stage = _checkpoint_stage(checkpoint_dir) if (
+        resume and checkpoint_dir) else None
+    if stage == "filtered":
+        filtered = checkpoint.load(checkpoint_dir, "filtered", device=dev)
+        cb.on_filter(filtered)
+        return _finish(filtered, cfg, cb, dev, None, None, None)
+    if stage == "collect":
+        frags = checkpoint.load(checkpoint_dir, "collect", device=dev)
+        spliced = splice_stage.splice(frags, cfg, device=dev)
+        cb.on_splice(spliced)
+        filtered = fg_stage.filter_fragments(spliced, cfg)
+        cb.on_filter(filtered)
+        pending = _save_checkpoint(cb, checkpoint_dir, "filtered", filtered,
+                                   include_store=False)
+        return _finish(filtered, cfg, cb, dev, None, None, pending)
 
     window = window_stage.scan(frames_factory(), cfg, device=dev)
     cb.on_window(window)
@@ -109,26 +206,31 @@ def build(
     crop = window.crop
     probe = frames_factory()
     if hasattr(probe, "with_crop"):
-        raise NotImplementedError("feeds that crop natively are not ported "
-                                  "yet")
+        # a feed re-crops natively, so collect reads packed batches off
+        # its native reader
+        source = probe.with_crop(_feed_crop(probe, crop))
+    else:
+        def cropped(src=probe):
+            for f in src:
+                yield f[crop.top:crop.bottom, crop.left:crop.right]
 
-    def cropped(src=probe):
-        for f in src:
-            yield f[crop.top:crop.bottom, crop.left:crop.right]
+        source = cropped()
 
-    col = collect_stage.collect(cropped(), cfg, device=dev)
+    col = collect_stage.collect(source, cfg, device=dev)
     cb.on_collect(col)
+    pending = _save_checkpoint(cb, checkpoint_dir, "collect", col.fragments)
 
     spliced = splice_stage.splice(col.fragments, cfg, device=dev)
     cb.on_splice(spliced)
 
     filtered = fg_stage.filter_fragments(spliced, cfg)
     cb.on_filter(filtered)
-
-    maps = clean_stage.clean(filtered, cfg, device=dev)
-    cb.on_clean(maps)
-    return BuildResult(maps=maps, window=window, fragments=filtered,
-                       collect=col)
+    _join(pending)
+    # the store is not saved again: the clean reads the canvases alone,
+    # and the collect checkpoint holds the frames
+    pending = _save_checkpoint(cb, checkpoint_dir, "filtered", filtered,
+                               include_store=False)
+    return _finish(filtered, cfg, cb, dev, window, col, pending)
 
 
 def build_from_frames(frames: Sequence[np.ndarray], cfg: PipelineConfig,

@@ -9,7 +9,9 @@ Two passes, as in the JAX package:
    Per-frame scalars come back stacked (``[B, 7]`` int32) through a
    non-blocking copy, ``collect_drain_depth`` batches behind the dispatch.
    Frames land packed in the store, their device copies kept as its
-   mirror.
+   mirror.  A feed with ``read_packed_batch`` (``io.frames``) serves its
+   batches packed by the native reader, read one batch ahead on a worker
+   thread, so nothing packs on the host.
 2. **Blit pass** (:func:`blit_pass`): per fragment, the reference's canvas
    growth is replayed on the host and the stored frames are voted into a
    device canvas in chunks (K3, in place over each chunk's box).
@@ -26,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -181,6 +184,8 @@ def match_pass(
     range_flags: List[np.ndarray] = []
     kp_need = 0
     carry = _empty_carry(layout, cfg.region_capacity, dev)
+    pending: deque = deque()
+    depth = max(1, cfg.collect_drain_depth)
 
     def drain(p) -> None:
         """Take one dispatched step's outputs, waiting for its copies
@@ -205,23 +210,15 @@ def match_pass(
                                        else None),
             )
 
-    it = iter(frames)
-    pending: deque = deque()
-    depth = max(1, cfg.collect_drain_depth)
-    number = 0
-    while True:
-        batch = list(itertools.islice(it, b))
-        if not batch:
-            break
-        n_real = len(batch)
-        stacked = np.stack(batch + [batch[-1]] * (b - n_real))
-        packed = pack_nibbles_batch(stacked)
-        # frames cross packed (2 px/byte) and unpack on the device; the
-        # device copy is donated to the store's mirror, so the blit and
-        # foreground passes never upload them again
+    def dispatch(number, n_real, packed, width) -> None:
+        """Run the step on one packed batch: frames cross packed (2
+        px/byte) and unpack on the device; the device copy is donated to
+        the store's mirror, so the blit and foreground passes never upload
+        them again."""
+        nonlocal carry
         packed_dev = upload(packed, dev)
-        images = unpack_nibbles_device(packed_dev, stacked.shape[-1])
-        median, scalars, carry = step(images, carry)
+        median, scalars, carry = step(
+            unpack_nibbles_device(packed_dev, width), carry)
         fetched = (HostCopy(scalars, median) if cfg.store_medians
                    else HostCopy(scalars))
         pending.append((number, n_real, packed, packed_dev, median, fetched))
@@ -229,9 +226,45 @@ def match_pass(
         # batch n+depth is dispatched
         if len(pending) >= depth:
             drain(pending.popleft())
-        number += n_real
-        if n_real < b:
-            break
+
+    feed = frames if hasattr(frames, "read_packed_batch") else None
+    it = None if feed is not None else iter(frames)
+    # the feed reads batch n+1 on a worker thread (the native reader, off
+    # the GIL) while the device computes batch n
+    pool = ThreadPoolExecutor(max_workers=1) if feed is not None else None
+    fut = pool.submit(feed.read_packed_batch, 0, b) if pool else None
+    number = 0
+    try:
+        while True:
+            if feed is not None:
+                # packed by the native reader: nothing packs or unpacks on
+                # the host
+                packed = fut.result()
+                n_real = len(packed)
+                if n_real == 0:
+                    break
+                if n_real == b:
+                    fut = pool.submit(feed.read_packed_batch,
+                                      number + n_real, b)
+                else:
+                    packed = np.concatenate(
+                        [packed, np.repeat(packed[-1:], b - n_real, axis=0)])
+                width = layout.width
+            else:
+                batch = list(itertools.islice(it, b))
+                if not batch:
+                    break
+                n_real = len(batch)
+                stacked = np.stack(batch + [batch[-1]] * (b - n_real))
+                packed = pack_nibbles_batch(stacked)
+                width = stacked.shape[-1]
+            dispatch(number, n_real, packed, width)
+            number += n_real
+            if n_real < b:
+                break
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
     while pending:
         drain(pending.popleft())
 
@@ -423,14 +456,21 @@ def collect(
     re-match when they are a minority; ``overflow_frames`` counts the
     pairs left inexact when the ladder gives up."""
     dev = get_device(device)
-    frames = iter(frames)
-    first = next(frames, None)
-    if first is None:
-        return CollectResult([], FrameStore(0, 0, device=dev),
-                             np.zeros((0, 2), np.int32),
-                             np.zeros((0,), bool), 0)
-    h, w = first.shape
-    source = itertools.chain([first], frames)
+    empty = CollectResult([], FrameStore(0, 0, device=dev),
+                          np.zeros((0, 2), np.int32), np.zeros((0,), bool), 0)
+    if hasattr(frames, "read_packed_batch"):
+        # a feed (io.frames): the match pass reads its packed batches
+        if len(frames) == 0:
+            return empty
+        h, w = frames.out_dims
+        source = frames
+    else:
+        frames = iter(frames)
+        first = next(frames, None)
+        if first is None:
+            return empty
+        h, w = first.shape
+        source = itertools.chain([first], frames)
     if layout is None:
         layout = make_layout(w, h, cfg.grid_width, cfg.grid_height,
                              cfg.grid_overlap)

@@ -18,8 +18,9 @@ per-frame scalars (aws.hpp:110-149):
 Frames cross to the device packed (2 px/byte); a worker thread reads and
 packs batch n+1 while the device scans batch n, and the host machine
 drains one batch behind the dispatch, reading the change flags through a
-non-blocking copy (``device.HostCopy``).  Only frame iterables are taken
-here (the JAX package's packed-feed branch belongs to its io module).
+non-blocking copy (``device.HostCopy``).  A feed with
+``read_packed_batch`` (``io.frames.RawDirectoryFeed``) hands over its
+batches packed by the native reader, so nothing packs on the host.
 """
 
 from __future__ import annotations
@@ -59,15 +60,23 @@ class WindowInfo:
 
 def scan(frames: Iterable[np.ndarray], cfg: PipelineConfig,
          device=None) -> Optional[WindowInfo]:
-    """The action window of ``frames`` (an iterable of ``[H, W]`` uint8),
-    or None when no window is accepted.  Runs on ``device``: CUDA unless
-    the caller asks for the CPU."""
+    """The action window of ``frames`` (an iterable of ``[H, W]`` uint8,
+    or a feed with ``read_packed_batch``), or None when no window is
+    accepted.  Runs on ``device``: CUDA unless the caller asks for the
+    CPU."""
     dev = get_device(device)
-    it = iter(frames)
-    first = next(it, None)
-    if first is None:
-        return None
-    h, w = first.shape
+    feed = frames if hasattr(frames, "read_packed_batch") else None
+    if feed is not None:
+        if len(feed) == 0:
+            return None
+        h, w = feed.out_dims
+        it = None
+    else:
+        it = iter(frames)
+        first = next(it, None)
+        if first is None:
+            return None
+        h, w = first.shape
     robust = cfg.discovery == "robust"
 
     min_area = (w * h) // cfg.aws_min_area_divisor
@@ -81,11 +90,28 @@ def scan(frames: Iterable[np.ndarray], cfg: PipelineConfig,
     else:
         carry = torch.ones((h, w), dtype=torch.uint8, device=dev)
     b = cfg.frame_batch
-    prev = torch.as_tensor(np.ascontiguousarray(first), device=dev)
+    if feed is not None:
+        prev = unpack_nibbles_device(
+            upload(feed.read_packed_batch(0, 1), dev), w)[0]
+    else:
+        prev = torch.as_tensor(np.ascontiguousarray(first), device=dev)
 
     def produce():
         """(packed [b, h, ceil(w/2)] uint8, n_real) batches from frame 1,
-        read and packed off the scan thread."""
+        read and packed off the scan thread (the last batch padded with
+        its last frame)."""
+        if feed is not None:
+            start = 1
+            while True:
+                packed = feed.read_packed_batch(start, b)
+                n_real = packed.shape[0]
+                if n_real == 0:
+                    return
+                if n_real < b:
+                    packed = np.concatenate(
+                        [packed, np.repeat(packed[-1:], b - n_real, axis=0)])
+                yield packed, n_real
+                start += n_real
         while True:
             batch = list(itertools.islice(it, b))
             if not batch:

@@ -1,6 +1,7 @@
 """Port map builder (remap_tpu_torch.pipeline.builder) vs the JAX package's:
 the maps byte for byte, the window, the spliced and filtered fragments
-and the order of the stage callbacks."""
+and the order of the stage callbacks; checkpoints and natively cropping
+feeds against the plain build."""
 
 import dataclasses
 
@@ -96,20 +97,37 @@ def test_static_clip_gives_no_maps():
 
 @pytest.mark.parametrize("kwargs", [{"checkpoint_dir": "ckpt"},
                                     {"resume": True}])
-def test_checkpoints_are_not_ported(kwargs):
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tbuilder.build_from_frames(_e2e_clip(), CFG, device="cpu", **kwargs)
+def test_checkpoints_are_not_ported(kwargs, tmp_path):
+    """Stage checkpoints run now: a build that saves them, or asks to
+    resume with no directory, gives the plain build's maps (resume itself
+    is tested in tests/test_torch_io.py)."""
+    frames = _e2e_clip()
+    if "checkpoint_dir" in kwargs:
+        kwargs = {"checkpoint_dir": str(tmp_path / kwargs["checkpoint_dir"])}
+    got = tbuilder.build_from_frames(frames, CFG, device="cpu", **kwargs)
+    want = tbuilder.build_from_frames(frames, CFG, device="cpu")
+    assert [m.tobytes() for m in got.maps] == [m.tobytes() for m in want.maps]
+    if "checkpoint_dir" in kwargs:
+        for tag in ("collect", "filtered"):
+            assert (tmp_path / "ckpt" / tag / "meta.json").exists()
 
 
 def test_native_crop_feeds_are_not_ported():
+    """A feed that crops natively (``with_crop``) is re-fed through it
+    with the window's crop, to the maps of plain frames."""
     frames = _e2e_clip()
+    crops = []
 
     class Feed(list):
         def with_crop(self, rect):
-            raise AssertionError("never called")
+            crops.append(rect)
+            return [f[rect.top:rect.bottom, rect.left:rect.right]
+                    for f in self]
 
-    with pytest.raises(NotImplementedError, match="crop"):
-        tbuilder.build(lambda: Feed(frames), CFG, device="cpu")
+    got = tbuilder.build(lambda: Feed(frames), CFG, device="cpu")
+    want = tbuilder.build_from_frames(frames, CFG, device="cpu")
+    assert crops == [want.window.crop]
+    assert [m.tobytes() for m in got.maps] == [m.tobytes() for m in want.maps]
 
 
 def test_perf_callbacks_print_every_stage(capsys):

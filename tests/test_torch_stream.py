@@ -204,16 +204,29 @@ def test_port_modules_include_the_map_build():
             "remap_tpu_torch.io.png"} <= names
 
 
+def test_port_modules_include_the_cli_slice():
+    """The guards below cover the CLI, the feeds, the codec, the
+    checkpoints and the session simulators too."""
+    names = set(_port_modules())
+    assert {"remap_tpu_torch.cli", "remap_tpu_torch.io.frames",
+            "remap_tpu_torch.io.codec", "remap_tpu_torch.io.checkpoint",
+            "remap_tpu_torch.io.native", "remap_tpu_torch.spec.nic",
+            "remap_tpu_torch.utils.gameplay",
+            "remap_tpu_torch.utils.wear"} <= names
+
+
 def test_port_imports_no_jax():
-    """Importing every module of the port brings in neither JAX nor any
-    module of the JAX package (``remap_tpu`` and its submodules)."""
+    """Importing every module of the port brings in neither JAX, nor any
+    module of the JAX package (``remap_tpu`` and its submodules), nor
+    Pillow (the card's host has none)."""
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'remap_tpu' or "
-        "m.startswith('remap_tpu.'))\n"
+        "m.startswith('remap_tpu.') or m == 'PIL' or "
+        "m.startswith('PIL.'))\n"
         "assert not bad, bad\n"
     )
     root = Path(__file__).resolve().parent.parent
@@ -244,10 +257,11 @@ def _port_sources() -> list:
                          ids=lambda p: f"{p.parent.name}/{p.name}")
 def test_port_sources_import_nothing_of_jax(path):
     """No file of the port, nor chip_smoke.py, imports ``jax``, the JAX
-    package (``remap_tpu``, not ``remap_tpu_torch``) or ``bench``."""
+    package (``remap_tpu``, not ``remap_tpu_torch``), ``bench`` or
+    Pillow."""
     bad = sorted(
         name for name in _imported_roots(path)
-        if name.split(".")[0] in ("jax", "remap_tpu", "bench"))
+        if name.split(".")[0] in ("jax", "remap_tpu", "bench", "PIL"))
     assert not bad, bad
 
 
