@@ -115,6 +115,33 @@ Phases, each of which raises on failure (non-zero exit):
    the first match pass's device idle share fed and in memory, the
    checkpoint seconds, both resumes' seconds, the PNG reader's ms a
    frame.
+11. matcher families (``matcher_phase``): (a) the correlation ops on the
+   card against the port on the CPU, all exact: collect() under xcorr on
+   the collect phase's cropped session (counted: its launches are the
+   xcorr collect path's; offsets the camera's, unmatched only at 0 and
+   around the noise frame), match_xcorr on its first 128 cropped pairs
+   at radius 48 (and the rounded windows; the FFT windows equal the
+   direct counts on 2 pairs), match_pyramid at VGA (64 pairs, steps up
+   to +-24 px, factor 4, coarse radius 32, fine radius 5; and its coarse
+   windows), match_canvases and match_canvases_pyramid on that collect's
+   two world fragments (offset, count, overlap, ok; the offset the frame
+   records give); each timed with CUDA events, with its peak memory.
+   (b) parallel.sharded.make_pipeline_step on BASELINE config 3 (8 clips
+   x 64 frames at 256x240 along known paths, capacity 768, layout 4x2
+   overlap 16, atlas pad 64) under grid_vote, xcorr and pyramid: offsets
+   the camera's deltas, every pair after frame 0 matched, every covered
+   atlas pixel one colour, the first 2 clips equal on the CPU, grid_vote
+   launching K1, K2 and K3 once a step and the correlation families K3
+   alone; frames/s.  (c) cli.main --matcher xcorr on phase 10's 2048 raw
+   files at PipelineConfig()'s flags: offsets the camera's, unmatched
+   only at 0 and around the noise frame, splice joining the world
+   fragments through match_canvases (one acceptance) and leaving the
+   noise frame alone, 2 maps, the world map's interior >= 99% the world;
+   the 64-frame cut's maps byte-equal with --cpu; its --perf stages
+   beside phase 10's.  (d) BASELINE config 5: builder.build_from_frames
+   under VGA with matcher "pyramid" on a 512-frame 640x480 session with
+   a noise frame, with (c)'s gates through match_canvases_pyramid, and a
+   16-frame cut byte-equal on the CPU; every stage's ms and peak.
 
 The line before the last is a JSON object of the kernels: for each, its
 launches on the main path that runs it, its largest difference from the
@@ -133,7 +160,11 @@ of the votes on precomputed bins, null for the others, since no single
 PyTorch call computes them.  The collect path's entries (extract_collect,
 tables_collect, blit_collect, cc_labels_window) carry its launches, and
 the map build's (extract_splice, tables_splice: K1 and K2 at the snippet
-shape) the splice stage's.  Launches count wrapper calls: a K2 call
+shape) the splice stage's; the multi-clip step's (extract_multiclip,
+tables_multiclip, blit_multiclip: K1 on its 512 flattened frames, K2 at
+capacity 768, K3 into its stacked canvas) one grid_vote step's, and the
+xcorr collect path's (extract_medians_xcorr, blit_xcorr) the launches
+of collect() under xcorr.  Launches count wrapper calls: a K2 call
 launches two kernels, a count and a scan, and its time covers both.  The
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the script
 exits non-zero and prints no result.
@@ -175,6 +206,12 @@ SPECK_REGION = (10, 276, 10, 376)   # package's wear differential
 #: map is exact left of column ~1000 and 3 px off right of it: both
 #: packages register a stretch of the worn frames 3 px off the camera
 WORN_AGREEMENT = 0.9286
+PYRAMID_PAIRS = 64         # matcher phase: VGA frame pairs for match_pyramid
+MULTI_CLIPS = 8            # multi-clip step: BASELINE config 3's 8 clips
+MULTI_T = 64               # of 64 NES frames each
+VGA_SESSION = 512          # pyramid map build: frames of the VGA session
+VGA_NOISE_AT = 256         # its noise frame
+VGA_SHORT = 16             # its cut built on the card and the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SPIN_HZ = 2.0e9            # spin cycles a second, above the H100's clock
 
@@ -1084,12 +1121,12 @@ def front_half(dev, frames, cfg, rungs):
                                    "chain_s": t2 - t0}
 
 
-def check_session(res, path, what: str) -> None:
+def check_session(res, path, what: str, noise_at: int = NOISE_AT) -> None:
     """Offsets equal the camera's deltas, matched is False only at frame 0
-    and around the noise frame, nothing left inexact, one fragment more
-    than the breaks."""
+    and around the noise frame ``noise_at``, nothing left inexact, one
+    fragment more than the breaks."""
     n = len(res.offsets)
-    breaks = {0} | ({NOISE_AT, NOISE_AT + 1} if n > NOISE_AT else set())
+    breaks = {0} | ({noise_at, noise_at + 1} if n > noise_at else set())
     unmatched = set(np.flatnonzero(~res.matched).tolist())
     if unmatched != breaks:
         raise AssertionError(f"{what}: unmatched frames "
@@ -1530,10 +1567,13 @@ def recorded_splice(dev, rungs: list, snippets: list):
 
     def finalize(frag, pend, cfg):
         snip = real_finalize(frag, pend, cfg)
-        snippets.append({"canvas": frag.shape,
-                         "bucket": tuple(pend[1].shape[1:]),
-                         "keypoints": int(pend[3]),
-                         "capacity": int(snip.codes.shape[0])})
+        image, _, weight, _, total = pend
+        snippets.append({
+            "canvas": frag.shape,
+            "bucket": tuple(image.shape if weight is None
+                            else weight.shape[1:]),
+            "keypoints": None if total is None else int(total),
+            "capacity": int(snip.codes.shape[0])})
         return snip
 
     splice.splice_ops.match_fragments = match
@@ -1702,7 +1742,7 @@ def splice_kernels(dev, world_frag, cfg, smi: str):
     plain1 = time_ms(lambda: kpe.extract_dense_plain(images, layout), 3)
     bound1 = bound_ms((images,), got)
 
-    _, weight, codes, total = splice._snippet_dispatch(world_frag, cfg)
+    _, _, weight, codes, total = splice._snippet_dispatch(world_frag, cfg)
     if not torch.equal(codes, got.codes):
         raise AssertionError("the snippet's codes differ from K1's")
     total = int(total)
@@ -2025,7 +2065,7 @@ def perf_lines(lines: list) -> str:
 
 
 def cli_phase(dev, counters: dict, smi: str, in_memory_maps,
-              in_memory_stages) -> None:
+              in_memory_stages) -> str:
     """The port's CLI (``remap_tpu_torch.cli.main``, in this process) on
     three inputs.  (1) The map phase's 2048-frame session as numbered raw
     files at PipelineConfig()'s flags with --perf and --checkpoint-dir,
@@ -2039,7 +2079,7 @@ def cli_phase(dev, counters: dict, smi: str, in_memory_maps,
     CLI's defaults: the world map's interior agreeing with the session's
     world at WORN_AGREEMENT or more.  (3) The map phase's 64-frame cut as
     RGB PNGs (io.png) with --format png: the maps of the same frames as
-    raw files."""
+    raw files.  Returns the session run's --perf stage lines."""
     import shutil
     import tempfile
 
@@ -2199,6 +2239,617 @@ def cli_phase(dev, counters: dict, smi: str, in_memory_maps,
             f"--format png: {len(out['png'])} maps byte-equal to the same "
             f"frames as raw files; the PNG reader {read_ms:.2f} ms a "
             f"{short.shape[2]}x{short.shape[1]} frame (host); on {smi}")
+    return perf_lines(lines)
+
+
+def timed(dev, fn):
+    """(result, wall ms, peak MiB) of one call of ``fn`` on ``dev``, the
+    card synchronised around it (the peak None off the card)."""
+    sync(dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3, peak_mb(dev)
+
+
+def mib(peak) -> str:
+    return "not measured" if peak is None else f"{peak:.0f} MiB"
+
+
+def same_tensors(got, want, what: str) -> None:
+    """Tuples of tensors equal element for element (card vs CPU); uint16
+    atlases compare as int32 (the CPU has no uint16 compare)."""
+    import torch
+
+    def host(t):
+        t = t.cpu()
+        return t.to(torch.int32) if t.dtype == torch.uint16 else t
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = host(g), host(w)
+        if g.shape != w.shape or not bool((g == w).all()):
+            raise AssertionError(f"{what}: output {i} differs")
+
+
+def walk(n: int, start, rng, max_step: int, reach: int, limits):
+    """A camera path of ``n`` (x, y) positions from ``start``, steps of up
+    to ``max_step`` px, held within ``reach`` of the start and within
+    ``limits`` (the largest x and y)."""
+    x0, y0 = start
+    path = [(x0, y0)]
+    for _ in range(n - 1):
+        x, y = np.add(path[-1], rng.integers(-max_step, max_step + 1, 2))
+        path.append((int(np.clip(x, max(0, x0 - reach),
+                                 min(limits[0], x0 + reach))),
+                     int(np.clip(y, max(0, y0 - reach),
+                                 min(limits[1], y0 + reach)))))
+    return path
+
+
+def canvas_pair(world_a, world_b, cfg, device):
+    """The two fragments' correlation snippets, as splice matches them:
+    (head image, head mask, other image, other mask) at the pad state's
+    dims."""
+    from remap_tpu_torch.pipeline import splice
+
+    snippets = [splice._extract_snippet(f, cfg, device)
+                for f in (world_a, world_b)]
+    pad = splice._PadState()
+    pad.update(snippets)
+    return (pad.image(snippets[0]), pad.mask(snippets[0]),
+            pad.image(snippets[1]), pad.mask(snippets[1]))
+
+
+def record_shift(frag, path, crop) -> tuple:
+    """The one (dx, dy) between a fragment's frame records and the
+    cropped frames' world positions."""
+    shifts = {(r.position[0] - path[r.number][0] - crop.left,
+               r.position[1] - path[r.number][1] - crop.top)
+              for r in frag.frames}
+    if len(shifts) != 1:
+        raise AssertionError(f"{len(shifts)} distinct record shifts")
+    return shifts.pop()
+
+
+def matcher_ops(dev, smi: str, counters: dict):
+    """Phase 11 (a): the correlation ops on the card against the port on
+    the CPU, exact: match_xcorr (and its rounded windows, and the direct
+    counts on two pairs) on 128 cropped frames of the collect phase's
+    session at radius 48; match_pyramid at VGA (64 pairs, steps up to
+    +-24 px, factor 4, coarse radius 32, fine radius 5) with its coarse
+    windows; match_canvases and match_canvases_pyramid on the session's
+    two world fragments from collect() under xcorr, which is counted:
+    its launches are the xcorr collect path's.  Returns (the xcorr
+    collect's launches, its cropped frames, its result)."""
+    import torch
+
+    from remap_tpu_torch.config import VGA, PipelineConfig
+    from remap_tpu_torch.models import pyramid
+    from remap_tpu_torch.ops import correlate
+    from remap_tpu_torch.pipeline import collect, window
+    from remap_tpu_torch.utils import clips
+
+    xcfg = dataclasses.replace(PipelineConfig(), matcher="xcorr")
+    frames, path = session_clip()
+    crop = window.scan(iter(frames), xcfg, device=dev).crop
+    cropped = np.ascontiguousarray(frames[:, crop.top:crop.bottom,
+                                          crop.left:crop.right])
+    collect.collect(cropped[:256], xcfg, device=dev)   # warm-up
+    for k in counters.values():
+        k.launches = 0
+    res, ms, peak = timed(dev, lambda: collect.collect(cropped, xcfg,
+                                                       device=dev))
+    launches = {name: k.launches for name, k in counters.items()}
+    check_session(res, path, "xcorr collect")
+    for name in ("extract_medians", "blit"):
+        if launches[name] == 0:
+            raise AssertionError(f"xcorr collect: {name} never launched")
+    if launches["extract"] or launches["tables"]:
+        raise AssertionError(f"xcorr collect launched {launches}")
+    n = len(cropped)
+    log(f"xcorr collect: {n} cropped frames [{cropped.shape[1]}x"
+        f"{cropped.shape[2]}] at PipelineConfig() with matcher xcorr: "
+        f"offsets equal the camera deltas, unmatched only at 0, {NOISE_AT}, "
+        f"{NOISE_AT + 1}, {len(res.fragments)} fragments, in {ms:.1f} ms "
+        f"({n / ms * 1e3:.1f} frames/s), peak {mib(peak)} allocated; "
+        f"launches {launches}; on {smi}")
+
+    # match_xcorr on 128 frame pairs at radius 48
+    b = xcfg.frame_batch
+    prev = torch.as_tensor(cropped[:b], device=dev)
+    curr = torch.as_tensor(cropped[1:b + 1], device=dev)
+    got, _, peak = timed(dev, lambda: correlate.match_xcorr(prev, curr))
+    card_ms = time_ms(lambda: correlate.match_xcorr(prev, curr), 5)
+    t0 = time.perf_counter()
+    want = correlate.match_xcorr(prev.cpu(), curr.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    same_tensors(got, want, "match_xcorr card vs CPU")
+    win = correlate.correlation_scores(prev, curr, 48)
+    same_tensors((win,), (correlate.correlation_scores(prev.cpu(), curr.cpu(),
+                                                       48),),
+                 "correlation windows card vs CPU")
+    same_tensors((win[:2],), (correlate.correlation_scores_direct(
+        prev[:2], curr[:2], 48),), "FFT windows vs direct counts")
+    deltas = np.diff(np.asarray(path[:b + 1]), axis=0)
+    if not (bool(got.ok.all())
+            and np.array_equal(got.offset.cpu().numpy(), deltas)):
+        raise AssertionError("match_xcorr: offsets differ from the camera")
+    log(f"match_xcorr [{b},{cropped.shape[1]},{cropped.shape[2]}] radius "
+        f"48 (FFT plane {correlate._pad_dim(cropped.shape[1], 48)}x"
+        f"{correlate._pad_dim(cropped.shape[2], 48)}): card equals the CPU "
+        f"(offsets, flags, peak counts, the rounded windows), the windows "
+        f"equal the direct counts on 2 pairs, offsets the camera's; "
+        f"{card_ms:.3f} ms on the card ({b / card_ms * 1e3:.1f} pairs/s), "
+        f"peak {mib(peak)} allocated; CPU {cpu_ms:.1f} ms; on {smi}")
+
+    # match_pyramid at VGA, steps up to +-24 px
+    rng = np.random.default_rng(31)
+    vh, vw = VGA.screen_height, VGA.screen_width
+    world = clips.make_world(vh + 400, vw + 400, rng)
+    vpath = clips.make_camera_path(PYRAMID_PAIRS + 1, world.shape, (vh, vw),
+                                   rng, max_step=24)
+    vframes = np.stack(clips.render_clip(world, vpath, (vh, vw)).frames)
+    vprev = torch.as_tensor(vframes[:-1], device=dev)
+    vcurr = torch.as_tensor(vframes[1:], device=dev)
+    got, _, peak = timed(dev, lambda: pyramid.match_pyramid(vprev, vcurr))
+    card_ms = time_ms(lambda: pyramid.match_pyramid(vprev, vcurr), 5)
+    t0 = time.perf_counter()
+    want = pyramid.match_pyramid(vprev.cpu(), vcurr.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    same_tensors(got, want, "match_pyramid card vs CPU")
+    same_tensors((correlate.correlation_scores(
+        vprev[:, ::4, ::4].contiguous(), vcurr[:, ::4, ::4].contiguous(), 32),),
+        (correlate.correlation_scores(vprev[:, ::4, ::4].cpu().contiguous(),
+                                      vcurr[:, ::4, ::4].cpu().contiguous(),
+                                      32),), "pyramid coarse windows")
+    vdeltas = np.diff(np.asarray(vpath), axis=0)
+    if not (bool(got[1].all())
+            and np.array_equal(got[0].cpu().numpy(), vdeltas)):
+        raise AssertionError("match_pyramid: offsets differ from the camera")
+    log(f"match_pyramid [{PYRAMID_PAIRS},{vh},{vw}] factor 4, coarse radius "
+        f"32, fine radius 5, steps up to {int(np.abs(vdeltas).max())} px: "
+        f"card equals the CPU (offsets, flags, the coarse windows), offsets "
+        f"the camera's, every pair accepted; {card_ms:.3f} ms on the card "
+        f"({PYRAMID_PAIRS / card_ms * 1e3:.1f} pairs/s), peak {mib(peak)} "
+        f"allocated; CPU {cpu_ms:.1f} ms; on {smi}")
+
+    # the canvas matchers on the two world fragments
+    world_a, _, world_b = res.fragments
+    expect = tuple(np.subtract(record_shift(world_a, path, crop),
+                               record_shift(world_b, path, crop)).tolist())
+    planes = canvas_pair(world_a, world_b, xcfg, dev)
+    cpu_planes = [p.cpu() for p in planes]
+    for name, fn in (("match_canvases", correlate.match_canvases),
+                     ("match_canvases_pyramid",
+                      correlate.match_canvases_pyramid)):
+        got, _, peak = timed(dev, lambda: fn(*planes))
+        card_ms = time_ms(lambda: fn(*planes), 3)
+        t0 = time.perf_counter()
+        want = fn(*cpu_planes)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        same_tensors(got, want, f"{name} card vs CPU")
+        if not bool(got.ok) or tuple(got.offset.tolist()) != expect:
+            raise AssertionError(f"{name}: {got.offset.tolist()} (ok "
+                                 f"{bool(got.ok)}) for {expect}")
+        log(f"{name}: the two world fragments' snippets "
+            f"{tuple(planes[0].shape)} and {tuple(planes[2].shape)}: card "
+            f"equals the CPU (offset, count, overlap, ok), offset {expect} "
+            f"as the frame records give, {int(got.count)} of "
+            f"{int(got.overlap)} px agree; {card_ms:.3f} ms on the card, "
+            f"peak {mib(peak)} allocated; CPU {cpu_ms:.1f} ms; on {smi}")
+    return launches, cropped, res
+
+
+def multiclip_clips(seed: int = 41):
+    """BASELINE config 3's batch: MULTI_CLIPS clips of MULTI_T frames at
+    256x240 (utils.clips.render_clip over one make_world), each camera
+    walking +-3 px a frame within 60 px of its start (inside the 64-px
+    atlas pad).  Returns (clips [C, T, H, W] uint8, paths)."""
+    from remap_tpu_torch.utils import clips
+
+    rng = np.random.default_rng(seed)
+    world = clips.make_world(H + 600, W + 600, rng)
+    limits = (world.shape[1] - W, world.shape[0] - H)
+    paths = [walk(MULTI_T, (int(rng.integers(60, limits[0] - 60)),
+                            int(rng.integers(60, limits[1] - 60))),
+                  rng, 3, 60, limits) for _ in range(MULTI_CLIPS)]
+    frames = np.stack([np.stack(clips.render_clip(world, p, (H, W)).frames)
+                       for p in paths])
+    return frames, paths
+
+
+def multiclip_kernels(dev, images, result, layout, cfg, pad: int) -> dict:
+    """K1, K2 and K3 of the grid_vote multi-clip step against their plain
+    versions at its shapes (K1 on the flattened C*T frames, K2 on its
+    output at the step's capacity, K3 at the step's stacked positions into
+    its stacked canvas); returns their entries (without launch counts)."""
+    import torch
+
+    from remap_tpu_torch.ops import kpe, tables
+    from remap_tpu_torch.ops.kernels import blit
+
+    c, t, h, w = images.shape
+    flat = images.reshape(c * t, h, w)
+    got = kpe.extract_dense(flat, layout)
+    err1 = require_equal(got, kpe.extract_dense_plain(flat, layout),
+                         "extract multi-clip")
+    ms1 = time_ms(lambda: kpe.extract_dense(flat, layout), 20)
+    plain1 = time_ms(lambda: kpe.extract_dense_plain(flat, layout), 3)
+    bound1 = bound_ms((flat,), got)
+    cap = cfg.region_capacity
+    tabs = tables.build_tables(got.weight, got.codes, layout, cap)
+    err2 = require_equal(tabs, tables.build_tables_plain(
+        got.weight, got.codes, layout, cap), "tables multi-clip")
+    ms2 = time_ms(lambda: tables.build_tables(got.weight, got.codes, layout,
+                                              cap), 20)
+    plain2 = time_ms(lambda: tables.build_tables_plain(
+        got.weight, got.codes, layout, cap), 3)
+    bound2 = tables_bound_ms(got.weight, tabs)
+    ah, aw = h + 2 * pad, w + 2 * pad
+    limit = torch.tensor([aw - w, ah - h], dtype=torch.int32, device=dev)
+    anchored = torch.minimum(torch.clamp(result.positions + pad, min=0),
+                             limit)
+    rows = torch.arange(c, dtype=torch.int32, device=dev) * ah
+    pos = (anchored + torch.stack([torch.zeros_like(rows), rows],
+                                  dim=-1)[:, None]).reshape(-1, 2)
+    canvas = torch.zeros((blit.DEPTH,) + blit.padded_dims(c * ah, aw),
+                         dtype=torch.int32, device=dev)
+    box = (0, 0, aw, c * ah)
+    got3 = blit.blit_frames_(flat, pos, canvas.clone(), box=box)
+    err3 = require_equal((got3,), (blit.blit_frames_plain_(
+        flat, pos, canvas.clone()),), "blit multi-clip")
+    ms3 = time_ms(lambda: blit.blit_frames_(flat, pos, canvas, box=box), 50)
+    plain3 = time_ms(lambda: blit.blit_frames_plain_(flat, pos, canvas), 3)
+    library3, bound3, voted = blit_library_and_bound(flat, pos, canvas)
+    log(f"multi-clip kernels: extract [{c * t},{h},{w}] kernel {ms1:.4f} "
+        f"ms, plain {plain1:.4f}, bound {bound1:.4f}; tables capacity {cap} "
+        f"kernel {ms2:.4f} ms, plain {plain2:.4f}, bound {bound2:.4f}, "
+        f"share {bound2 / ms2:.3f}; blit into {tuple(canvas.shape)} kernel "
+        f"{ms3:.4f} ms, plain {plain3:.4f}, library index_put_ "
+        f"{library3:.4f}, bound {bound3:.4f} ({voted} voted bins); all "
+        f"equal (exact, tolerance 0)")
+    return {
+        "extract": kernel_entry("extract_multiclip",
+                                "remap_tpu/ops/pallas/extract.py:215",
+                                "extract.cu", err1, ms1, plain1, bound1),
+        "tables": kernel_entry("tables_multiclip",
+                               "remap_tpu/ops/pallas/tables.py:189",
+                               "tables.cu", err2, ms2, plain2, bound2),
+        "blit": kernel_entry("blit_multiclip",
+                             "remap_tpu/ops/pallas/blit.py:130", "blit.cu",
+                             err3, ms3, plain3, bound3, library3),
+    }
+
+
+def multiclip_phase(dev, smi: str, counters: dict):
+    """Phase 11 (b): make_pipeline_step on BASELINE config 3 at the JAX
+    benchmark's multi-clip configuration (8 clips x 64 frames at 256x240,
+    capacity 768, layout 4x2 overlap 16, atlas pad 64) under the three
+    families, counts zeroed just before each counted step and read just
+    after: offsets equal the camera's deltas and every pair after frame 0
+    matches, every covered atlas pixel holds one colour, the first 2
+    clips equal on the CPU, and grid_vote launches K1, K2 and K3 once a
+    step, the correlation families K3 alone.  Returns the grid_vote
+    step's kernel entries with their launches."""
+    import torch
+
+    from remap_tpu_torch.config import PipelineConfig
+    from remap_tpu_torch.core.regions import make_layout
+    from remap_tpu_torch.parallel import sharded
+
+    clips_np, paths = multiclip_clips()
+    c, t = clips_np.shape[:2]
+    layout = make_layout(W, H, 4, 2, 16)
+    images = torch.as_tensor(clips_np, device=dev)
+    deltas = np.stack([np.diff(np.asarray(p), axis=0) for p in paths])
+    entries = {}
+    for family in ("grid_vote", "xcorr", "pyramid"):
+        cfg = PipelineConfig(screen_width=W, screen_height=H,
+                             region_capacity=768, frame_batch=t,
+                             matcher=family)
+        step = sharded.make_pipeline_step(layout, cfg, atlas_pad=64,
+                                          device=dev)
+        step(images)   # warm-up
+        for k in counters.values():
+            k.launches = 0
+        res, _, peak = timed(dev, lambda: step(images))
+        launches = {name: k.launches for name, k in counters.items()}
+        want = ({"extract": 1, "tables": 1, "blit": 1} if family ==
+                "grid_vote" else {"extract": 0, "tables": 0, "blit": 1})
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"multi-clip {family}: launches {launches}")
+        matched = res.matched.cpu().numpy()
+        if matched[:, 0].any() or not matched[:, 1:].all():
+            raise AssertionError(f"multi-clip {family}: matched "
+                                 f"{int(matched.sum())} of {c * t}")
+        if not np.array_equal(res.offsets[:, 1:].cpu().numpy(), deltas):
+            raise AssertionError(f"multi-clip {family}: offsets differ from "
+                                 "the camera's deltas")
+        colours = (res.atlas.to(torch.int32) > 0).sum(dim=-1)
+        covered = int((colours > 0).sum())
+        if int(colours.max()) > 1:
+            raise AssertionError(f"multi-clip {family}: an atlas pixel holds "
+                                 "two colours")
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(images)
+        sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / 5
+        t0 = time.perf_counter()
+        cpu = sharded.make_pipeline_step(layout, cfg, atlas_pad=64,
+                                         device="cpu")(images[:2].cpu())
+        cpu_s = time.perf_counter() - t0
+        same_tensors([x[:2] for x in res], cpu,
+                     f"multi-clip {family}, first 2 clips card vs CPU")
+        log(f"multi-clip {family}: {c} clips x {t} frames [{H}x{W}], "
+            f"offsets the camera's, every pair after frame 0 matched, "
+            f"{covered} atlas px each one colour, the first 2 clips equal "
+            f"on the CPU ({cpu_s:.1f} s); launches {launches}; step "
+            f"{step_ms:.3f} ms ({c * t / step_ms * 1e3:.1f} frames/s), "
+            f"peak {mib(peak)} allocated; on {smi}")
+        if family == "grid_vote":
+            entries = multiclip_kernels(dev, images, res, layout, cfg, 64)
+            for name, entry in entries.items():
+                entry["launches"] = launches[name]
+    return list(entries.values())
+
+
+def xcorr_collect_kernels(dev, cropped, res, cfg, launches) -> list:
+    """K1's medians-only instantiation and K3 against their plain versions
+    as the xcorr collect path launches them (a batch of cropped frames;
+    the blit pass's first chunk into the first fragment's canvas), with
+    the path's launches."""
+    import torch
+
+    from remap_tpu_torch.core.regions import make_layout
+    from remap_tpu_torch.ops import kpe
+    from remap_tpu_torch.ops.kernels import blit
+    from remap_tpu_torch.pipeline import collect
+    from remap_tpu_torch.pipeline.state import simulate_growth
+
+    b = cfg.frame_batch
+    fh, fw = cropped.shape[1:]
+    layout = make_layout(fw, fh, cfg.grid_width, cfg.grid_height,
+                         cfg.grid_overlap)
+    images = torch.as_tensor(cropped[:b], device=dev)
+    want = kpe.extract_dense_plain(images, layout).median
+    err1 = require_equal((kpe.extract_medians(images, layout),), (want,),
+                         "extract medians, xcorr collect")
+    ms1 = time_ms(lambda: kpe.extract_medians(images, layout), 20)
+    plain1 = time_ms(lambda: kpe.extract_dense_plain(images, layout).median,
+                     3)
+    bound1 = bound_ms((images,), (want,))
+    numbers, positions = collect.segment_positions(res.offsets,
+                                                   res.matched)[0]
+    zero, (cw, ch) = simulate_growth(positions, fw, fh)
+    n3 = min(b, len(numbers))
+    frames3 = torch.as_tensor(cropped[numbers[:n3]], device=dev)
+    pos = collect.chunk_positions(positions[:n3], zero, n3, dev)
+    box = collect.chunk_box(positions[:n3], zero, fh, fw)
+    canvas = torch.zeros((blit.DEPTH,) + blit.padded_dims(ch, cw),
+                         dtype=torch.int32, device=dev)
+    err3 = require_equal((blit.blit_frames_(frames3, pos, canvas.clone(),
+                                            box=box),),
+                         (blit.blit_frames_plain_(frames3, pos,
+                                                  canvas.clone()),),
+                         "blit, xcorr collect")
+    ms3 = time_ms(lambda: blit.blit_frames_(frames3, pos, canvas, box=box),
+                  50)
+    plain3 = time_ms(lambda: blit.blit_frames_plain_(frames3, pos, canvas), 3)
+    library3, bound3, _ = blit_library_and_bound(frames3, pos, canvas)
+    log(f"xcorr collect kernels: medians-only extract [{b},{fh},{fw}] "
+        f"kernel {ms1:.4f} ms, plain {plain1:.4f}, bound {bound1:.4f}; blit "
+        f"pass chunk kernel {ms3:.4f} ms, plain {plain3:.4f}, library "
+        f"{library3:.4f}, bound {bound3:.4f}; equal (exact, tolerance 0)")
+    k1 = kernel_entry("extract_medians_xcorr",
+                      "remap_tpu/ops/pallas/extract.py:253", "extract.cu",
+                      err1, ms1, plain1, bound1)
+    k3 = kernel_entry("blit_xcorr", "remap_tpu/ops/pallas/blit.py:130",
+                      "blit.cu", err3, ms3, plain3, bound3, library3)
+    k1["launches"] = launches["extract_medians"]
+    k3["launches"] = launches["blit"]
+    return [k1, k3]
+
+
+class CanvasCalls:
+    """Counts the canvas matcher's calls and acceptances while active
+    (splice looks ``match_canvases`` up at each call)."""
+
+    def __init__(self, name: str):
+        from remap_tpu_torch.ops import correlate
+
+        self.module, self.name = correlate, name
+        self.calls = self.accepted = 0
+
+    def __enter__(self):
+        real = getattr(self.module, self.name)
+
+        def counted(*args, **kwargs):
+            out = real(*args, **kwargs)
+            self.calls += 1
+            self.accepted += int(bool(out.ok))
+            return out
+
+        self.real = real
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def check_map(res, path, world, noise_at: int, n: int, what: str) -> tuple:
+    """The map build's gates: collect's offsets the camera's (unmatched only
+    at 0 and around the noise frame), splice leaving two fragments (the
+    world's every other frame, the noise frame alone), 2 maps, the world
+    map's interior at least 99% the world.  Returns (agree, compared)."""
+    check_session(res.collect, path, f"{what} collect", noise_at)
+    numbers = sorted(len(f.frames) for f in res.fragments)
+    if numbers != [1, n - 1] or len(res.maps) != 2:
+        raise AssertionError(f"{what}: fragments of {numbers} frames, "
+                             f"{len(res.maps)} maps")
+    noise = min(res.fragments, key=lambda f: len(f.frames))
+    if [r.number for r in noise.frames] != [noise_at]:
+        raise AssertionError(f"{what}: the noise fragment holds "
+                             f"{[r.number for r in noise.frames]}")
+    agree, compared = world_agreement(res, world, path, res.window.crop)
+    if agree < 0.99 * compared:
+        raise AssertionError(f"{what}: the world map agrees with the world "
+                             f"at {agree} of {compared} px")
+    return agree, compared
+
+
+def xcorr_cli_phase(dev, smi: str, counters: dict, grid_perf: str) -> None:
+    """Phase 11 (c): cli.main --matcher xcorr on the map phase's 2048-frame
+    session as raw files at PipelineConfig()'s flags, counts zeroed just
+    before and read just after: offsets the camera's wherever matched,
+    unmatched only at frame 0 and around the noise frame, splice joining
+    the two world fragments with match_canvases and leaving the noise
+    frame alone (2 maps), the world map's interior at least 99% the
+    world; the 64-frame cut's maps byte-equal on the card and the CPU."""
+    import tempfile
+
+    from remap_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    frames, path = session_clip()
+    world = session_world()
+    flags = ["--region-capacity", cfg.region_capacity, "--vote-radius",
+             cfg.vote_radius, "--matcher", "xcorr"]
+    with tempfile.TemporaryDirectory() as tmp:
+        write_raw(f"{tmp}/session", frames)
+        for k in counters.values():
+            k.launches = 0
+        with cli_probe(dev) as rec, CanvasCalls("match_canvases") as calls:
+            rc, lines, wall_s = run_cli([f"{tmp}/session", *flags, "--perf",
+                                         "--out-prefix", f"{tmp}/out"])
+        launches = {name: k.launches for name, k in counters.items()}
+        if rc != 0:
+            raise AssertionError(f"cli xcorr: exit code {rc}")
+        res = rec["builds"][-1]
+        written_maps(lines, res.maps, "cli xcorr")
+        agree, compared = check_map(res, path, world, NOISE_AT, len(frames),
+                                    "cli xcorr")
+        if calls.accepted != 1:
+            raise AssertionError(f"cli xcorr: {calls.calls} canvas matches, "
+                                 f"{calls.accepted} accepted")
+        n = len(frames)
+        log(f"cli xcorr: {n} raw files, --matcher xcorr at PipelineConfig()'s"
+            f" flags: rc 0 in {wall_s:.3f} s ({n / wall_s:.1f} frames/s of "
+            f"wall); offsets the camera's, unmatched only at 0, {NOISE_AT}, "
+            f"{NOISE_AT + 1}; splice: {calls.calls} match_canvases calls, "
+            f"{calls.accepted} accepted, the world fragments joined, the "
+            f"noise frame alone; 2 maps {[m.shape for m in res.maps]}, the "
+            f"world map's interior equals the world at {agree} of {compared} "
+            f"px ({agree / compared:.4%}); launches {launches}; on {smi}")
+        log(f"cli xcorr stages: {perf_lines(lines)}; grid_vote (phase 10): "
+            f"{grid_perf}; on {smi}")
+
+        lo = NOISE_AT - SHORT // 2
+        write_raw(f"{tmp}/short", frames[lo:lo + SHORT])
+        maps = {}
+        for where in ("card", "cpu"):
+            extra = ["--cpu"] if where == "cpu" else []
+            with cli_probe(dev) as srec:
+                rc, slines, s_wall = run_cli(
+                    [f"{tmp}/short", *flags, "--frame-batch", SHORT, *extra,
+                     "--out-prefix", f"{tmp}/short_{where}_"])
+            if rc != 0:
+                raise AssertionError(f"cli xcorr {where} cut: exit code {rc}")
+            maps[where] = srec["builds"][-1].maps
+            written_maps(slines, maps[where], f"cli xcorr {where} cut")
+        same_maps(maps["card"], maps["cpu"], "cli xcorr cut, card vs CPU")
+        log(f"cli xcorr cut: {SHORT} frames around the noise frame, "
+            f"--frame-batch {SHORT}: {len(maps['cpu'])} maps byte-equal on "
+            f"the card and with --cpu (the CPU run {s_wall:.1f} s)")
+
+
+def vga_session(n: int = VGA_SESSION, seed: int = 21):
+    """A session at VGA (640x480) from utils.clips.render_clip: a busy
+    world under a +-8 px camera walk, 3 moving 8x8 sprites, a 16-row HUD
+    and 4-px border, and the play area of frame VGA_NOISE_AT noise.
+    Returns (frames, camera path, world)."""
+    from remap_tpu_torch.config import VGA
+    from remap_tpu_torch.utils import clips
+
+    h, w = VGA.screen_height, VGA.screen_width
+    rng = np.random.default_rng(seed)
+    world = clips.make_world(h + 400, w + 400, rng)
+    path = clips.make_camera_path(n, world.shape, (h, w), rng, max_step=8)
+    frames = np.stack(clips.render_clip(
+        world, path, (h, w), rng=rng, n_sprites=3, sprite_size=8,
+        hud_rows=16, border=4).frames)
+    frames[VGA_NOISE_AT, 16:-4, 4:-4] = rng.integers(
+        0, 16, (h - 20, w - 8), dtype=np.uint8)
+    return frames, path, world
+
+
+def pyramid_map_phase(dev, smi: str, counters: dict) -> None:
+    """Phase 11 (d): BASELINE config 5's map build: builder.build_from_frames
+    under VGA with matcher "pyramid" on a VGA_SESSION-frame 640x480
+    session with a noise frame, counts zeroed just before and read just
+    after, with (c)'s gates (splice through match_canvases_pyramid); a
+    VGA_SHORT-frame cut around the noise frame byte-equal on the card and
+    the CPU."""
+    from remap_tpu_torch.config import VGA
+
+    cfg = dataclasses.replace(VGA, matcher="pyramid")
+    frames, path, world = vga_session()
+    lo = VGA_NOISE_AT - VGA_SHORT // 2
+    scfg = dataclasses.replace(cfg, frame_batch=VGA_SHORT)
+    short = frames[lo:lo + VGA_SHORT]
+    card, card_spliced = timed_build(dev, short, scfg, counters)[:2]
+    t0 = time.perf_counter()
+    cpu, cpu_spliced = timed_build("cpu", short, scfg, counters)[:2]
+    cpu_s = time.perf_counter() - t0
+    same_build((card, card_spliced), (cpu, cpu_spliced),
+               f"the {VGA_SHORT}-frame VGA cut, card vs CPU")
+    for k in counters.values():
+        k.launches = 0
+    with CanvasCalls("match_canvases_pyramid") as calls:
+        t0 = time.perf_counter()
+        res, _, stages = timed_build(dev, frames, cfg, counters)[:3]
+        wall_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    agree, compared = check_map(res, path, world, VGA_NOISE_AT, len(frames),
+                                "pyramid map")
+    if calls.accepted != 1:
+        raise AssertionError(f"pyramid map: {calls.calls} canvas matches, "
+                             f"{calls.accepted} accepted")
+    n = len(frames)
+    log(f"pyramid map build (VGA): {n} frames [{frames.shape[1]}x"
+        f"{frames.shape[2]}], noise frame {VGA_NOISE_AT}: offsets the "
+        f"camera's (steps up to 8 px), unmatched only at 0, {VGA_NOISE_AT}, "
+        f"{VGA_NOISE_AT + 1}; splice {calls.calls} match_canvases_pyramid "
+        f"calls, {calls.accepted} accepted; 2 maps "
+        f"{[m.shape for m in res.maps]}, the world map's interior equals the "
+        f"world at {agree} of {compared} px ({agree / compared:.4%}); wall "
+        f"{wall_s:.3f} s ({n / wall_s:.1f} frames/s); launches {launches}; "
+        f"the {VGA_SHORT}-frame cut's maps byte-equal on the CPU "
+        f"({cpu_s:.1f} s); on {smi}")
+    log("pyramid map stages: " + ", ".join(
+        f"{s['stage']} {s['ms']:.1f} ms (peak {mib(s['peak_mb'])})"
+        for s in stages) + f"; on {smi}")
+
+
+def matcher_phase(dev, counters: dict, smi: str, grid_perf: str) -> list:
+    """Phase 11, the matcher families: (a) the correlation ops on the card
+    against the CPU, (b) the multi-clip step under the three families,
+    (c) the CLI under --matcher xcorr, (d) the pyramid map build at VGA.
+    Returns the kernel entries of the multi-clip step and of the xcorr
+    collect path, with their launches."""
+    from remap_tpu_torch.config import PipelineConfig
+
+    launches, cropped, res = matcher_ops(dev, smi, counters)
+    entries = xcorr_collect_kernels(
+        dev, cropped, res, dataclasses.replace(PipelineConfig(),
+                                               matcher="xcorr"), launches)
+    entries += multiclip_phase(dev, smi, counters)
+    xcorr_cli_phase(dev, smi, counters, grid_perf)
+    pyramid_map_phase(dev, smi, counters)
+    return entries
 
 
 def main() -> int:
@@ -2311,7 +2962,8 @@ def main() -> int:
         "cc_stats": cc.label_stats_cuda}
     entries, maps, stages = map_phase(dev, map_counters, smi)
     kernels += entries
-    cli_phase(dev, map_counters, smi, maps, stages)
+    grid_perf = cli_phase(dev, map_counters, smi, maps, stages)
+    kernels += matcher_phase(dev, map_counters, smi, grid_perf)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

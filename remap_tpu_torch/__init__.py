@@ -3,7 +3,8 @@
 The port runs on one NVIDIA GPU, with a hand-written CUDA kernel
 (``csrc/*.cu``, built by ``nvcc`` for ``sm_90a`` at first use) in place of
 each Pallas kernel of the JAX package.  Ported: the streaming
-align+stitch step, the whole map build as the JAX package's
+align+stitch step, the multi-clip step, the three matcher families, the
+whole map build as the JAX package's
 ``pipeline.builder`` runs it (window scan -> crop -> collect -> splice ->
 foreground -> clean, with stage checkpoints and resume), which writes
 maps (``io.png``), and its command line, ``python -m
@@ -20,7 +21,9 @@ remap_tpu_torch.cli <frames-dir>``.
   ``ops.atlas`` fragment canvases
 - ``ops.splice``, ``ops.arf``  the cellular fragment matcher, the
   artifact filter (plain tensor code)
-- ``parallel.sharded``  the streaming step itself
+- ``ops.correlate``, ``models``  the correlation matchers on ``torch.fft``
+  and the xcorr and pyramid families built on them
+- ``parallel.sharded``  the streaming step and the multi-clip step
 - ``pipeline.window``, ``pipeline.collect``, ``pipeline.stream``,
   ``pipeline.splice``, ``pipeline.foreground``, ``pipeline.clean``,
   ``pipeline.builder``  the stages and the orchestrator;

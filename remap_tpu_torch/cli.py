@@ -7,8 +7,8 @@ with flags for the screen geometry, frame format, artifact constants,
 device batch sizes and checkpoints that the reference hardcodes
 (main.cpp:194-244).  The flags and exit codes are the JAX CLI's: 1 for
 an unreadable or empty directory, an unknown palette or a flag whose
-path is not ported (``--distributed`` and its parameters, ``--matcher
-xcorr|pyramid``), 2 when no action window is found, else 0.  The build
+path is not ported (``--distributed`` and its parameters), 2 when no
+action window is found, else 0.  The build
 runs on the CUDA card; ``--cpu`` runs it on the CPU instead.
 """
 
@@ -40,8 +40,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--matcher", choices=["grid_vote", "xcorr", "pyramid"],
                    default="grid_vote",
                    help="alignment family for collect AND splice "
-                        "(grid_vote = reference parity; the correlation "
-                        "families are not ported yet)")
+                        "(grid_vote = reference parity)")
     p.add_argument("--weight-switch", type=int, default=10)
     p.add_argument("--region-votes", type=int, default=3)
     p.add_argument("--frame-batch", type=int, default=128)
@@ -92,9 +91,6 @@ def _not_ported(args) -> str | None:
     if (args.distributed or args.coordinator is not None
             or args.num_processes is not None or args.process_id is not None):
         return "multi-device runs (--distributed) are not ported yet"
-    if args.matcher != "grid_vote":
-        return (f"--matcher {args.matcher} is not ported yet (grid_vote "
-                "only)")
     return None
 
 

@@ -172,3 +172,13 @@ class PipelineConfig:
 
     def with_screen(self, width: int, height: int) -> "PipelineConfig":
         return dataclasses.replace(self, screen_width=width, screen_height=height)
+
+
+#: Benchmark-target config: NES-resolution frames (BASELINE.json configs[0]).
+NES = PipelineConfig(screen_width=256, screen_height=240)
+#: SNES clip config (BASELINE.json configs[1]).
+SNES = PipelineConfig(screen_width=256, screen_height=224)
+#: The reference's own C64 capture format (main.cpp:199).
+C64 = PipelineConfig(screen_width=388, screen_height=312)
+#: High-res capture, pyramid matching (BASELINE.json configs[4]).
+VGA = PipelineConfig(screen_width=640, screen_height=480)

@@ -1,5 +1,6 @@
-"""The streaming align+stitch step (port of remap_tpu/parallel/sharded.py's
-``make_streaming_step``).
+"""The streaming align+stitch step and the multi-clip pipeline step (port
+of remap_tpu/parallel/sharded.py's ``make_streaming_step`` and
+``make_pipeline_step``).
 
 One batch of frames goes in, per-frame offsets come out, and the atlas
 and matcher state stay on the device: extract -> region tables -> match
@@ -12,6 +13,11 @@ Nothing in ``step`` waits for the device: ``strayed`` and the flags come
 back as device tensors, and the atlas shift runs on every step (a shift
 by 0 is the identity) instead of branching on the host as the JAX
 ``lax.cond`` does.
+
+The multi-clip step (:func:`make_pipeline_step`) takes ``[C, T, H, W]``
+clips and returns per-clip offsets, flags, positions and a fixed stitch
+window per clip, under any matcher family.  Its mesh-sharded form
+(``make_sharded_step``) is not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from remap_tpu_torch import models
 from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.core.regions import GridLayout
 from remap_tpu_torch.device import get_device
@@ -44,6 +51,97 @@ def segmented_positions(offsets: torch.Tensor,
     at_break = run.gather(1, last.clamp(min=0)[..., None].expand_as(run))
     pos = run - torch.where((last >= 0)[..., None], at_break, 0)
     return pos.to(torch.int32)
+
+
+class StepResult(NamedTuple):
+    """The multi-clip step's outputs, in the JAX package's layout."""
+
+    offsets: torch.Tensor    # [C, T, 2] int32 offset vs the previous frame
+    matched: torch.Tensor    # [C, T] bool
+    positions: torch.Tensor  # [C, T, 2] int32 segmented cumsum of offsets
+    atlas: torch.Tensor      # [C, AH, AW, 16] uint16 stitch window per clip
+
+
+def match_pairs(prev, curr, layout: GridLayout, cfg: PipelineConfig):
+    """``kpm.match_tables`` of the (prev, curr) tables under ``cfg``'s
+    matcher knobs (the grid_vote matcher)."""
+    return kpm_ops.match_tables(
+        prev, curr, layout,
+        weight_switch=cfg.match.weight_switch,
+        region_votes=cfg.match.region_votes,
+        min_active_divisor=cfg.min_active_divisor,
+        runner_up_divisor=cfg.runner_up_divisor,
+        multiplicity=cfg.join_multiplicity,
+        vote_radius=cfg.vote_radius,
+    )
+
+
+def make_pipeline_step(layout: GridLayout, cfg: PipelineConfig,
+                       atlas_pad: int = 64, device=None):
+    """Build ``step(images [C, T, H, W] uint8) -> StepResult`` on
+    ``device`` (CUDA unless the caller asks for the CPU).
+
+    The alignment follows ``cfg.matcher``: grid_vote extracts (K1) and
+    builds the tables (K2) once over the flattened ``C*T`` frames, then
+    matches the pairs (t-1, t) inside each clip; the correlation families
+    match those pairs' frames.  Positions are the segmented cumsum of the
+    declared offsets, anchored ``atlas_pad`` into each clip's ``(H +
+    2 pad) x (W + 2 pad)`` window and clamped to it, and every clip's
+    frames are voted in one K3 launch into a canvas that stacks the clips'
+    windows.  Frame 0 of each clip is unmatched.  Raises for a
+    ``cfg.table_mode`` the port does not implement."""
+    check_table_mode(cfg.table_mode)
+    h, w = layout.height, layout.width
+    ah, aw = h + 2 * atlas_pad, w + 2 * atlas_pad
+    dev = get_device(device)
+    pair_match = (None if cfg.matcher == "grid_vote"
+                  else models.get_matcher(cfg.matcher, cfg))
+    limit = torch.tensor([aw - w, ah - h], dtype=torch.int32, device=dev)
+
+    def step(images: torch.Tensor) -> StepResult:
+        c, t = images.shape[:2]
+        n = c * (t - 1)
+        if pair_match is None:
+            dense = kpe_ops.extract_dense(images.reshape(c * t, h, w),
+                                          layout)
+            tabs = table_ops.build_tables(dense.weight, dense.codes, layout,
+                                          cfg.region_capacity)
+            clips = [a.reshape((c, t) + a.shape[1:]) for a in tabs]
+            prev = table_ops.RegionTables(*(
+                a[:, :-1].reshape((n,) + a.shape[2:]) for a in clips))
+            curr = table_ops.RegionTables(*(
+                a[:, 1:].reshape((n,) + a.shape[2:]) for a in clips))
+            res = match_pairs(prev, curr, layout, cfg)
+            pair_offsets, pair_ok = res.offset, res.ok
+        else:
+            pair_offsets, pair_ok = pair_match(
+                images[:, :-1].reshape(n, h, w),
+                images[:, 1:].reshape(n, h, w))
+        offsets = torch.cat([
+            torch.zeros((c, 1, 2), dtype=torch.int32, device=dev),
+            pair_offsets.reshape(c, t - 1, 2).to(torch.int32)], dim=1)
+        matched = torch.cat([
+            torch.zeros((c, 1), dtype=torch.bool, device=dev),
+            pair_ok.reshape(c, t - 1)], dim=1)
+        positions = segmented_positions(offsets, matched)
+        anchored = torch.minimum(torch.clamp(positions + atlas_pad, min=0),
+                                 limit)
+        # the clips' windows stack vertically in one canvas: clip i's
+        # frames land i * AH rows down, so one launch votes every clip
+        rows = torch.arange(c, dtype=torch.int32, device=dev) * ah
+        flat_pos = (anchored + torch.stack(
+            [torch.zeros_like(rows), rows], dim=-1)[:, None]).reshape(-1, 2)
+        dots = torch.zeros((blit_ops.DEPTH,)
+                           + blit_ops.padded_dims(c * ah, aw),
+                           dtype=torch.int32, device=dev)
+        blit_ops.blit_frames_(images.reshape(c * t, h, w), flat_pos, dots,
+                              box=(0, 0, aw, c * ah))
+        atlas = dots[:, :c * ah, :aw].reshape(blit_ops.DEPTH, c, ah, aw)
+        return StepResult(offsets=offsets, matched=matched,
+                          positions=positions,
+                          atlas=atlas.permute(1, 2, 3, 0).to(torch.uint16))
+
+    return step
 
 
 class StreamFlags(NamedTuple):
@@ -140,15 +238,7 @@ def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
         prev = table_ops.RegionTables(*(
             torch.cat([c, a[:-1]], dim=0) for c, a in zip(state.carry, tabs)
         ))
-        res = kpm_ops.match_tables(
-            prev, tabs, layout,
-            weight_switch=cfg.match.weight_switch,
-            region_votes=cfg.match.region_votes,
-            min_active_divisor=cfg.min_active_divisor,
-            runner_up_divisor=cfg.runner_up_divisor,
-            multiplicity=cfg.join_multiplicity,
-            vote_radius=cfg.vote_radius,
-        )
+        res = match_pairs(prev, tabs, layout, cfg)
         # the very first frame of the stream never matches
         matched = res.ok & (state.started | (torch.arange(t, device=dev) > 0))
         offsets = torch.where(matched[:, None], res.offset, 0)

@@ -20,7 +20,11 @@ Two passes, as in the JAX package:
 a pass whose tables overflowed, whose join truncated or whose vote radius
 could matter re-matches the flagged pairs (or replays the clip when most
 are flagged) under escalated limits until every declaration is exact.
-Only the grid_vote matcher is ported (the matcher families come later).
+Under the correlation families (``cfg.matcher`` "xcorr" / "pyramid",
+``models``) the match pass matches the frames themselves, carrying the
+previous batch's last frame, and raises no escalation flag; its K1
+launch is the medians-only instantiation, since no table is read there
+(the JAX package also builds the tables it never reads).
 """
 
 from __future__ import annotations
@@ -34,15 +38,17 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from remap_tpu_torch import models
 from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.core.regions import GridLayout, make_layout
 from remap_tpu_torch.device import HostCopy, get_device, upload
 from remap_tpu_torch.ops import atlas as atlas_ops
 from remap_tpu_torch.ops import kpe as kpe_ops
-from remap_tpu_torch.ops import kpm as kpm_ops
 from remap_tpu_torch.ops import tables as table_ops
 from remap_tpu_torch.ops.kernels import blit as kblit
-from remap_tpu_torch.parallel.sharded import check_table_mode
+from remap_tpu_torch.parallel.sharded import (
+    check_table_mode, match_pairs as _match,
+)
 from remap_tpu_torch.pipeline.state import (
     Fragment, FrameRef, FrameStore, pack_nibbles_batch, pack_nibbles_device,
     simulate_growth, unpack_nibbles_device,
@@ -78,25 +84,6 @@ def _store_budget(cfg: PipelineConfig, device) -> int:
     return FrameStore.DEVICE_MIRROR_CAP
 
 
-def _check_matcher(cfg: PipelineConfig) -> None:
-    if cfg.matcher != "grid_vote":
-        raise NotImplementedError(
-            f"matcher {cfg.matcher!r} is not ported (grid_vote only)")
-    check_table_mode(cfg.table_mode)
-
-
-def _match(prev, curr, layout: GridLayout, cfg: PipelineConfig):
-    return kpm_ops.match_tables(
-        prev, curr, layout,
-        weight_switch=cfg.match.weight_switch,
-        region_votes=cfg.match.region_votes,
-        min_active_divisor=cfg.min_active_divisor,
-        runner_up_divisor=cfg.runner_up_divisor,
-        multiplicity=cfg.join_multiplicity,
-        vote_radius=cfg.vote_radius,
-    )
-
-
 def _kp_need(tabs: table_ops.RegionTables) -> torch.Tensor:
     """[B] true per-frame keypoint maximum over regions (wcounts count the
     whole region, not the kept rows)."""
@@ -115,16 +102,30 @@ def make_collect_step(layout: GridLayout, cfg: PipelineConfig):
     """The pass-1 step for a fixed layout and config:
     ``step(images [B, H, W] uint8, carry) -> (packed medians [B, H,
     ceil(W/2)] uint8, scalars [B, 7] int32, new carry)``, on the device of
-    ``images``.  The carry is the previous batch's last tables (the JAX
-    carry's frame half serves the matcher families, not ported)."""
-    _check_matcher(cfg)
+    ``images``.  The carry is (the previous batch's last tables, its last
+    frame): the grid_vote matcher reads the tables, the correlation
+    families the frame."""
+    check_table_mode(cfg.table_mode)
+    frame_matcher = (None if cfg.matcher == "grid_vote"
+                     else models.get_matcher(cfg.matcher, cfg))
 
-    def step(images: torch.Tensor, carry: table_ops.RegionTables):
+    def step(images: torch.Tensor, carry):
+        carry_tabs, carry_frame = carry
+        new_frame = images[-1:].clone()
+        if frame_matcher is not None:
+            prev_frames = torch.cat([carry_frame, images[:-1]], dim=0)
+            offset, ok = frame_matcher(prev_frames, images)
+            none = torch.zeros_like(ok)
+            scalars = _stack_scalars(offset, ok, none, none, none,
+                                     torch.zeros_like(ok, dtype=torch.int32))
+            median = kpe_ops.extract_medians(images, layout)
+            return (pack_nibbles_device(median), scalars,
+                    (carry_tabs, new_frame))
         dense = kpe_ops.extract_dense(images, layout)
         tabs = table_ops.build_tables(dense.weight, dense.codes, layout,
                                       cfg.region_capacity)
         prev = table_ops.RegionTables(*(
-            torch.cat([c, t[:-1]], dim=0) for c, t in zip(carry, tabs)))
+            torch.cat([c, t[:-1]], dim=0) for c, t in zip(carry_tabs, tabs)))
         res = _match(prev, tabs, layout, cfg)
         # three separate escalation signals: table capacity (raise
         # capacity), join truncation (raise multiplicity), vote-radius
@@ -133,8 +134,9 @@ def make_collect_step(layout: GridLayout, cfg: PipelineConfig):
         scalars = _stack_scalars(res.offset, res.ok,
                                  tabs.overflow.any(dim=-1), res.overflow,
                                  res.range_overflow, _kp_need(tabs))
-        new_carry = table_ops.RegionTables(*(t[-1:].clone() for t in tabs))
-        return pack_nibbles_device(dense.median), scalars, new_carry
+        new_tabs = table_ops.RegionTables(*(t[-1:].clone() for t in tabs))
+        return (pack_nibbles_device(dense.median), scalars,
+                (new_tabs, new_frame))
 
     return step
 
@@ -152,9 +154,12 @@ def split_step_scalars(scalars: np.ndarray):
     )
 
 
-def _empty_carry(layout: GridLayout, capacity: int,
-                 device) -> table_ops.RegionTables:
-    return table_ops.empty_tables(layout.region_count, capacity, device)
+def _empty_carry(layout: GridLayout, capacity: int, device):
+    """The carry before the first frame: empty tables and a zero frame
+    (frame 0's declaration is forced to no-match whatever they give)."""
+    return (table_ops.empty_tables(layout.region_count, capacity, device),
+            torch.zeros((1, layout.height, layout.width), dtype=torch.uint8,
+                        device=device))
 
 
 def match_pass(
@@ -292,8 +297,9 @@ def make_pair_step(layout: GridLayout, cfg: PipelineConfig):
     so a retry recomputes exactly the flagged pairs.
     ``pair_step(prev [B, H, W], curr [B, H, W]) -> scalars [B, 7] int32``,
     laid out as the collect step's (tab flags either endpoint's, kp_need
-    the larger)."""
-    _check_matcher(cfg)
+    the larger).  It is the grid_vote matcher's: the correlation families
+    raise no flag, so the ladder never re-matches their pairs."""
+    check_table_mode(cfg.table_mode)
 
     def tables(images):
         dense = kpe_ops.extract_dense(images, layout)

@@ -1,5 +1,5 @@
 """The fragment splicing stage (port of remap_tpu/pipeline/splice.py,
-fgs.hpp), grid_vote family.
+fgs.hpp).
 
 Each fragment is blended and keypoint-extracted with a whole-canvas 1x1
 grid (fgs.hpp:17/80-103: K1 on the canvas padded to 256-multiples, the
@@ -11,10 +11,14 @@ order, fgs.hpp:142-163), re-extracts the merged snippet (list front),
 re-matches it against the rest, and repeats until no edges remain.
 Canvas merges replay fgm's step-quantised growth exactly.
 
-Everything runs on the fragments' device.  The correlation families
-(``cfg.matcher`` "xcorr" / "pyramid") raise ``NotImplementedError``, as
-in ``pipeline.collect``; the JAX package's round robin of the initial
-extraction over devices is one device here.
+Under the correlation families (``cfg.matcher`` "xcorr" / "pyramid") a
+snippet is the blended canvas alone, and pairs are aligned by the dense
+masked-agreement correlation (``ops.correlate.match_canvases``, or its
+pyramid), whose peak agreement count takes the cellular vote count's
+place in the greedy merge order.
+
+Everything runs on the fragments' device; the JAX package's round robin
+of the initial extraction over devices is one device here.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.core.regions import make_layout
 from remap_tpu_torch.ops import atlas as atlas_ops
+from remap_tpu_torch.ops import correlate
 from remap_tpu_torch.ops import kpe as kpe_ops
 from remap_tpu_torch.ops import splice as splice_ops
 from remap_tpu_torch.ops import tables as table_ops
@@ -65,6 +70,8 @@ class _Snippet:
     pos: torch.Tensor              # [K, 2] int32
     valid: torch.Tensor            # [K] bool
     edges: List[_Edge] = dataclasses.field(default_factory=list)
+    #: [HB, WB] uint8 zero-padded blended canvas (correlation families)
+    image_bucket: Optional[torch.Tensor] = None
     #: (unique valid code rows, their counts), computed once
     _code_counts: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
@@ -80,21 +87,18 @@ class _Snippet:
         return self._code_counts
 
 
-def _check_matcher(cfg: PipelineConfig) -> None:
-    if cfg.matcher != "grid_vote":
-        raise NotImplementedError(
-            f"matcher {cfg.matcher!r} is not ported (grid_vote only)")
-
-
 def _snippet_dispatch(frag: Fragment, cfg: PipelineConfig, device=None):
-    """Blend, then K1 over the canvas padded to 256-multiples under the 1x1
-    layout, with the weights cut to the true canvas's processed interior
-    (``x in [kh, w-kh)``, ``y in [kh, h-kh-2)``, the reference's bottom
-    quirk included).  Returns (mask, weight, codes, keypoint count), all on
-    the device."""
+    """Blend; for grid_vote, then K1 over the canvas padded to
+    256-multiples under the 1x1 layout, with the weights cut to the true
+    canvas's processed interior (``x in [kh, w-kh)``, ``y in [kh,
+    h-kh-2)``, the reference's bottom quirk included).  Returns (image,
+    mask, weight, codes, keypoint count), all on the device; the last three
+    None for the correlation families."""
     ch, cw = frag.shape
     dots = frag.device_dots(device)[:, :ch, :cw]
     image, mask = atlas_ops.blend(dots)
+    if cfg.matcher != "grid_vote":
+        return image, mask, None, None, None
     hb2, wb2 = _round_up(ch, _SHAPE_BUCKET), _round_up(cw, _SHAPE_BUCKET)
     image = F.pad(image, (0, wb2 - cw, 0, hb2 - ch))
     layout = make_layout(wb2, hb2, 1, 1, 0)
@@ -103,14 +107,27 @@ def _snippet_dispatch(frag: Fragment, cfg: PipelineConfig, device=None):
     interior = torch.zeros((hb2, wb2), dtype=torch.uint8, device=dots.device)
     interior[kh:max(ch - kh - 2, 0), kh:max(cw - kh, 0)] = 1
     weight = dense.weight * interior
-    return mask, weight, dense.codes, (weight > 0).sum()
+    return image, mask, weight, dense.codes, (weight > 0).sum()
 
 
 def _snippet_finalize(frag: Fragment, pend, cfg: PipelineConfig) -> _Snippet:
-    mask, weight, codes, total = pend
+    image, mask, weight, codes, total = pend
     ch, cw = frag.shape
-    mask_b = F.pad(mask, (0, _round_up(cw, _BUCKET) - cw,
-                          0, _round_up(ch, _BUCKET) - ch))
+
+    def bucketed(plane):
+        return F.pad(plane, (0, _round_up(cw, _BUCKET) - cw,
+                             0, _round_up(ch, _BUCKET) - ch))
+
+    mask_b = bucketed(mask)
+    if weight is None:
+        # the correlation families match blended canvases: no tables
+        dev = mask.device
+        return _Snippet(
+            fragment=frag, mask_bucket=mask_b, dims=(cw, ch),
+            codes=torch.zeros((0, 4), dtype=torch.int32, device=dev),
+            pos=torch.zeros((0, 2), dtype=torch.int32, device=dev),
+            valid=torch.zeros((0,), dtype=torch.bool, device=dev),
+            image_bucket=bucketed(image))
     # the reference keeps EVERY keypoint of the blended canvas
     # (fgs.hpp:80-103): size the table to the true count, in x4 steps
     total = int(total)
@@ -157,9 +174,15 @@ class _PadState:
             self.hb = max(self.hb, _canon_dim(s.mask_bucket.shape[0]))
             self.wb = max(self.wb, _canon_dim(s.mask_bucket.shape[1]))
 
+    def _padded(self, plane: torch.Tensor) -> torch.Tensor:
+        return F.pad(plane, (0, self.wb - plane.shape[1],
+                             0, self.hb - plane.shape[0]))
+
     def mask(self, s: _Snippet) -> torch.Tensor:
-        m = s.mask_bucket
-        return F.pad(m, (0, self.wb - m.shape[1], 0, self.hb - m.shape[0]))
+        return self._padded(s.mask_bucket)
+
+    def image(self, s: _Snippet) -> torch.Tensor:
+        return self._padded(s.image_bucket)
 
 
 def _needed_multiplicity(head: _Snippet, other: _Snippet) -> int:
@@ -185,13 +208,23 @@ def _match(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
            pad: Optional[_PadState] = None
            ) -> Optional[Tuple[Tuple[int, int], int]]:
     """(offset, count) of an accepted match of ``other`` against ``head``,
-    or None.  The multiplicity starts at the host-measured need (a power of
-    two), retries once at the join's own measure on overflow, and turns
-    dense where the dense join is no bigger (``4 * m >= K``)."""
-    _check_matcher(cfg)
+    or None.  Under grid_vote the multiplicity starts at the host-measured
+    need (a power of two), retries once at the join's own measure on
+    overflow, and turns dense where the dense join is no bigger (``4 * m
+    >= K``).  The correlation families align the pad state's canvases (the
+    zero padding is masked out, so offsets are exact)."""
     if pad is None:
         pad = _PadState()
         pad.update([head, other])
+    if cfg.matcher != "grid_vote":
+        fn = (correlate.match_canvases if cfg.matcher == "xcorr"
+              else correlate.match_canvases_pyramid)
+        res = fn(pad.image(head), pad.mask(head), pad.image(other),
+                 pad.mask(other), min_overlap=cfg.splice_min_overlap,
+                 ratio=cfg.splice_xcorr_ratio)
+        if not bool(res.ok):
+            return None
+        return tuple(int(v) for v in res.offset.tolist()), int(res.count)
     k = pad.cap
     h_tabs = _padded_tables(head, k)
     o_tabs = _padded_tables(other, k)
@@ -304,7 +337,6 @@ def splice(fragments: List[Fragment], cfg: PipelineConfig,
     unless the caller asks for the CPU)."""
     if not fragments:
         return []
-    _check_matcher(cfg)
     if frame_dims is None:
         assert fragments[0].store is not None
         frame_dims = (fragments[0].store.width, fragments[0].store.height)

@@ -3,10 +3,11 @@ remap_tpu/pipeline/stream.py).
 
 Incremental form of ``pipeline.collect`` for continuous operation:
 callers push frame batches; each batch runs the collect step (extract,
-tables, match against the carried tables) at once, frames land packed in
-the store (their device copies kept as its mirror, within the
-``frame_store`` budget), and ``finish()`` segments positions and blits
-the fragments.  There is no escalation ladder here: ``overflow_frames``
+tables, match against the carried tables; under the correlation families
+the frames themselves, against the carried last frame) at once, frames
+land packed in the store (their device copies kept as its mirror, within
+the ``frame_store`` budget), and ``finish()`` segments positions and
+blits the fragments.  There is no escalation ladder here: ``overflow_frames``
 counts the frames whose declaration is not provably exact, and
 ``needed_capacity`` is the running max per-region keypoint count for a
 re-run.

@@ -24,6 +24,10 @@ from remap_tpu_torch import cli
 from remap_tpu_torch.core import palette as tpalette
 from remap_tpu_torch.io import png
 
+from torch_parity import build_jax_native
+
+build_jax_native()
+
 ROOT = Path(__file__).resolve().parent.parent
 #: tests/test_cli.py's flags for its clip
 FLAGS = ["--width", "96", "--height", "72", "--frame-batch", "8",
@@ -127,6 +131,31 @@ def test_cli_gameplay_sessions_equal_jax(genre, tmp_path, capsys):
             np.asarray(m)))
 
 
+@pytest.mark.parametrize("family", ["xcorr", "pyramid"])
+def test_cli_matcher_families_equal_jax(family, clip_dir, tmp_path, capsys):
+    """``--matcher xcorr|pyramid``: the port's CLI writes the maps of JAX's
+    ``builder.build`` under the family and the JAX CLI's files."""
+    prefix = str(tmp_path / "map")
+    rc, out, err = _run(capsys, clip_dir, "--cpu", *FLAGS, "--matcher",
+                        family, "--out-prefix", prefix)
+    assert rc == 0, err
+    cfg = JPipelineConfig(screen_width=96, screen_height=72, frame_batch=8,
+                          region_capacity=2048, vote_radius=16,
+                          splice_capacity=2048, matcher=family)
+    feed = jframes.RawDirectoryFeed(str(clip_dir), 96, 72)
+    want = jbuilder.build(lambda: feed, cfg).maps
+    got = _maps_written(prefix, out)
+    assert len(got) == len(want) >= 1
+    for g, m in zip(got, want):
+        np.testing.assert_array_equal(g, jpalette.native_to_rgb(
+            np.asarray(m)))
+    jprefix = str(tmp_path / "jmap")
+    assert jcli.main([str(clip_dir), "--cpu", *FLAGS, "--matcher", family,
+                      "--out-prefix", jprefix]) == 0
+    for i, g in enumerate(got, start=1):
+        np.testing.assert_array_equal(png.decode_png(f"{jprefix}{i}.png"), g)
+
+
 def test_cli_checkpoints_and_resume(clip_dir, jax_maps, tmp_path, capsys):
     ckpt = tmp_path / "ckpt"
     prefix = str(tmp_path / "map")
@@ -201,8 +230,10 @@ def test_cli_exit_codes(case, tmp_path, capsys):
         "palette": ([static, "--palette", "nope"], 1, "unknown palette"),
         "distributed": ([static, "--distributed"], 1, "not ported"),
         "coordinator": ([static, "--coordinator", "h:1"], 1, "not ported"),
-        "xcorr": ([static, "--matcher", "xcorr"], 1, "not ported"),
-        "pyramid": ([static, "--matcher", "pyramid"], 1, "not ported"),
+        "xcorr": ([static, *FLAGS, "--matcher", "xcorr"], 2,
+                  "no action window found"),
+        "pyramid": ([static, *FLAGS, "--matcher", "pyramid"], 2,
+                    "no action window found"),
         "no_window": ([static, *FLAGS], 2, "no action window found"),
     }[case]
     (tmp_path / "empty").mkdir()
@@ -210,6 +241,9 @@ def test_cli_exit_codes(case, tmp_path, capsys):
     assert rc == code
     assert message in err
     assert "wrote" not in out
+    if case in ("xcorr", "pyramid"):
+        # the JAX CLI's exit on the same static frames
+        assert jcli.main([str(a) for a in args] + ["--cpu"]) == 2
 
 
 def test_cli_needs_cuda_unless_asked_for_cpu(clip_dir, capsys):

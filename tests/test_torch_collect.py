@@ -192,17 +192,70 @@ def test_stitcher_matches_jax():
 
 
 def test_collect_edges():
-    """An empty clip gives an empty result; table mode sort2 and the
-    matcher families are not ported and raise."""
+    """An empty clip gives an empty result; table mode sort2 is not ported
+    and raises."""
     res = tcollect.collect(iter([]), CFG, device="cpu")
     assert res.fragments == [] and res.offsets.shape == (0, 2)
     frames = _break_frames()[:3]
     with pytest.raises(NotImplementedError, match="sort2"):
         tcollect.collect(frames, dataclasses.replace(CFG, table_mode="sort2"),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="xcorr"):
-        tcollect.collect(frames, dataclasses.replace(CFG, matcher="xcorr"),
-                         device="cpu")
+
+
+# ---- the correlation families ------------------------------------------------
+
+@pytest.mark.parametrize("family", ["xcorr", "pyramid"])
+def test_collect_families_match_jax(family):
+    """collect() under each correlation family on a clip with a noise
+    break, and tests/test_models.py's xcorr clip: offsets, flags and
+    canvases equal JAX's; the family raises no escalation flag."""
+    cfg = dataclasses.replace(CFG, matcher=family)
+    got = _collect_both(_break_frames(), cfg)
+    assert np.flatnonzero(~got.matched).tolist() == [0, 7, 8]
+    assert len(got.fragments) == 3 and got.overflow_frames == 0
+    clip = testing.simple_clip(n_frames=12, frame_hw=(64, 96),
+                               world_hw=(160, 224), seed=41)
+    got = _collect_both(clip.frames, cfg)
+    assert [tuple(o) for o in got.offsets[1:]] == clip.offsets
+    assert len(got.fragments) == 1
+
+
+@pytest.mark.parametrize("batch", [3, 5])
+def test_collect_xcorr_carries_the_frame_across_batches(batch, ladder):
+    """The last frame carried across batch edges: the offsets at every
+    batch size equal the JAX run at frame_batch 8, and the ladder never
+    runs a second pass."""
+    frames = _break_frames()
+    want = convert.collect_result_to_numpy(jcollect.collect(
+        frames, jax_twin(dataclasses.replace(CFG, matcher="xcorr"))))
+    cfg = dataclasses.replace(CFG, matcher="xcorr", frame_batch=batch)
+    got = tcollect.collect(frames, cfg, device="cpu")
+    _assert_host_equal(convert.collect_result_to_numpy(got), want)
+    assert [c[0] for c in ladder] == ["pass"]
+
+
+@pytest.mark.parametrize("family", ["xcorr", "pyramid"])
+def test_stitcher_families_match_jax(family):
+    """StreamingStitcher under each correlation family, push by push with
+    a short last batch, and its fragments, against the JAX stitcher."""
+    frames = np.stack(_break_frames())
+    cfg = dataclasses.replace(CFG, frame_batch=4, matcher=family)
+    want = jstream.StreamingStitcher(jax_twin(cfg))
+    got = tstream.StreamingStitcher(cfg, device="cpu")
+    for i in range(0, len(frames), 4):
+        w_off, w_ok = want.push(frames[i:i + 4])
+        g_off, g_ok = got.push(frames[i:i + 4])
+        np.testing.assert_array_equal(g_off, w_off)
+        np.testing.assert_array_equal(g_ok, w_ok)
+    for name in ("frame_no", "overflow_frames", "range_overflow_frames",
+                 "needed_capacity"):
+        assert getattr(got, name) == getattr(want, name), name
+    g_frags, w_frags = got.finish(), want.finish()
+    assert len(g_frags) == len(w_frags) == 3
+    for g, w in zip(g_frags, w_frags):
+        g, w = convert.fragment_to_numpy(g), convert.fragment_to_numpy(w)
+        assert g.frames == w.frames
+        np.testing.assert_array_equal(g.dots, w.dots)
 
 
 def test_store_budget_auto_by_device():

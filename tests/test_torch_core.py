@@ -64,6 +64,13 @@ def test_config_from_dict_round_trips(cfg):
     assert convert.config_from_dict(dataclasses.asdict(port)) == port
 
 
+@pytest.mark.parametrize("name", ["NES", "SNES", "C64", "VGA"])
+def test_config_presets_match_jax(name):
+    got, want = getattr(tconfig, name), getattr(jconfig, name)
+    assert isinstance(got, tconfig.PipelineConfig)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
 #: the sizes the repo runs (NES, C64, gameplay, the test clips, VGA) and
 #: the layout arguments the port's tests and chip_smoke.py use
 @pytest.mark.parametrize("size", [(256, 240), (388, 312), (372, 272),

@@ -37,7 +37,9 @@ from remap_tpu_torch.pipeline import collect as tcollect
 from remap_tpu_torch.pipeline import window as twindow
 from remap_tpu_torch.spec import nic as tnic
 
-from torch_parity import jax_twin
+from torch_parity import build_jax_native, jax_twin
+
+build_jax_native()
 
 H, W = 31, 45
 #: tests/test_pipeline_e2e.py's setup

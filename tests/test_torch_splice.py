@@ -351,12 +351,12 @@ def _world_clips(paths, noise_between: bool, seed: int = 11):
     return frames
 
 
-def _splice_both(frames, expect_in: int, expect_out: int):
-    jcol = jcollect.collect(frames, jax_twin(CFG))
-    tcol = tcollect.collect(frames, CFG, device="cpu")
+def _splice_both(frames, expect_in: int, expect_out: int, cfg=CFG):
+    jcol = jcollect.collect(frames, jax_twin(cfg))
+    tcol = tcollect.collect(frames, cfg, device="cpu")
     assert len(jcol.fragments) == len(tcol.fragments) == expect_in
-    want = jsplice.splice(jcol.fragments, jax_twin(CFG))
-    got = tsplice.splice(tcol.fragments, CFG)
+    want = jsplice.splice(jcol.fragments, jax_twin(cfg))
+    got = tsplice.splice(tcol.fragments, cfg)
     assert len(got) == len(want) == expect_out
     for g, w in zip(got, want):
         g, w = convert.fragment_to_numpy(g), convert.fragment_to_numpy(w)
@@ -388,6 +388,64 @@ def test_splice_four_worlds_match_jax():
 
 
 def test_splice_empty_and_other_matchers():
-    assert tsplice.splice([], CFG) == []
-    with pytest.raises(NotImplementedError, match="xcorr"):
-        tsplice.splice([None], dataclasses.replace(CFG, matcher="xcorr"))
+    for matcher in ("grid_vote", "xcorr", "pyramid"):
+        assert tsplice.splice([], dataclasses.replace(CFG,
+                                                      matcher=matcher)) == []
+
+
+# ---- the correlation families -------------------------------------------------
+
+@pytest.mark.parametrize("family", ["xcorr", "pyramid"])
+def test_splice_families_match_jax(family):
+    """Collect and splice under each correlation family on the two-world
+    session with a noise frame: the world fragments merge, the noise
+    frame stays, canvases and records equal JAX's."""
+    frames = _world_clips([[(20 + i, 30) for i in range(8)],
+                           [(40 + i, 34) for i in range(8)]], True)
+    got = _splice_both(frames, 3, 2, dataclasses.replace(CFG,
+                                                         matcher=family))
+    assert sorted(len(f.frames) for f in got) == [1, 16]
+
+
+@pytest.mark.parametrize("family", ["xcorr", "pyramid"])
+def test_splice_family_fragments_match_jax(family):
+    """tests/test_splice_xcorr.py::test_splice_family_end_to_end's two
+    hand-blitted fragments (no store): one merged fragment, equal to
+    JAX's, and the correlation snippets' bucketed images and masks equal
+    JAX's."""
+    world = testing.make_world(300, 340, np.random.default_rng(12))
+    fh, fw = 96, 128
+
+    def frag(x0, y0, n, dx):
+        dots = np.zeros((fh, fw + (n - 1) * dx, 16), np.uint16)
+        frames = []
+        for i in range(n):
+            f = world[y0:y0 + fh, x0 + i * dx:x0 + i * dx + fw]
+            dots[:, i * dx:i * dx + fw] += (
+                f[..., None] == np.arange(16, dtype=np.uint8))
+            frames.append(jstate.FrameRef(i, (x0 + i * dx, y0)))
+        return jstate.Fragment(dots=dots, zero=(x0, y0), frames=frames,
+                               store=None)
+
+    cfg = dataclasses.replace(PipelineConfig(screen_width=fw,
+                                             screen_height=fh),
+                              matcher=family)
+    jfrags = [frag(10, 30, 3, 16), frag(10 + 2 * 16 + 24, 30, 3, 16)]
+    tfrags = [convert.fragment_from_numpy(f, "cpu") for f in jfrags]
+    for jf, tf in zip(jfrags, tfrags):
+        want = jsplice._extract_snippet(jf, jax_twin(cfg))
+        got = tsplice._extract_snippet(tf, cfg)
+        assert got.dims == want.dims
+        np.testing.assert_array_equal(to_numpy(got.image_bucket),
+                                      want.image_bucket)
+        np.testing.assert_array_equal(to_numpy(got.mask_bucket),
+                                      want.mask_bucket)
+    want = jsplice.splice(jfrags, jax_twin(cfg), frame_dims=(fw, fh))
+    got = tsplice.splice(tfrags, cfg, frame_dims=(fw, fh))
+    assert len(got) == len(want) == 1
+    g, w = convert.fragment_to_numpy(got[0]), convert.fragment_to_numpy(
+        want[0])
+    assert g.zero == w.zero and g.frames == w.frames
+    np.testing.assert_array_equal(g.dots, w.dots)
+    xs = sorted(fr.position[0] for fr in got[0].frames)
+    assert [x - xs[0] for x in xs] == [0, 16, 32, 56, 72, 88]

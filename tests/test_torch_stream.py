@@ -215,6 +215,15 @@ def test_port_modules_include_the_cli_slice():
             "remap_tpu_torch.utils.wear"} <= names
 
 
+def test_port_modules_include_the_matcher_slice():
+    """The guards below cover the correlation matchers and their
+    families too."""
+    names = set(_port_modules())
+    assert {"remap_tpu_torch.ops.correlate", "remap_tpu_torch.models",
+            "remap_tpu_torch.models.xcorr",
+            "remap_tpu_torch.models.pyramid"} <= names
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port brings in neither JAX, nor any
     module of the JAX package (``remap_tpu`` and its submodules), nor
@@ -285,6 +294,8 @@ def _entry_point(name):
 
     if name == "make_streaming_step":
         return lambda: tsharded.make_streaming_step(LAYOUT, STREAM_CFG)
+    if name == "make_pipeline_step":
+        return lambda: tsharded.make_pipeline_step(LAYOUT, STREAM_CFG)
     if name == "FrameStore":
         return lambda: state.FrameStore(8, 8)
     if name == "Fragment.device_dots":
@@ -310,7 +321,8 @@ def _entry_point(name):
     raise KeyError(name)
 
 
-@pytest.mark.parametrize("name", ["make_streaming_step", "FrameStore",
+@pytest.mark.parametrize("name", ["make_streaming_step", "make_pipeline_step",
+                                  "FrameStore",
                                   "Fragment.device_dots",
                                   "stream_state_from_numpy", "splice",
                                   "clean", "build_from_frames"])

@@ -11,7 +11,13 @@ marker.  This module imports no JAX, so the JAX-free kernel tests
 from __future__ import annotations
 
 import dataclasses
+import fcntl
 import functools
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,6 +33,44 @@ CFG = PipelineConfig(
     screen_width=96, screen_height=64, region_capacity=512, frame_batch=4
 )
 LAYOUT = make_layout(96, 64, 4, 2, 16)
+
+
+#: the repo's native sources, Makefile and the JAX package's libraries
+NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
+NATIVE_LIBS = ("libremapfeed.so", "libremapcodec.so")
+
+
+def build_jax_native() -> None:
+    """Make sure the JAX package's native libraries exist whole in
+    ``native/`` before any test runs.
+
+    The JAX loader (remap_tpu/io/frames.py, io/codec.py) runs ``make -C
+    native`` when a library is missing and loads it as soon as the file
+    exists, so two test processes that start together can load a library
+    the other is still linking.  Here, under an exclusive lock on a file
+    in ``native/``, a missing library is built with ``native/Makefile`` in
+    a temporary directory and moved into place with ``os.replace``
+    (atomic), so the loader finds whole files and never runs ``make``.
+    Test modules call this while they are imported: every test process
+    imports them before it runs a test.  A failed build raises with
+    make's output."""
+    with open(NATIVE_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if all((NATIVE_DIR / name).exists() for name in NATIVE_LIBS):
+            return
+        with tempfile.TemporaryDirectory(dir=NATIVE_DIR,
+                                         prefix=".build-") as tmp:
+            for src in [NATIVE_DIR / "Makefile", *NATIVE_DIR.glob("*.cpp")]:
+                shutil.copyfile(src, Path(tmp) / src.name)
+            proc = subprocess.run(["make", "-C", tmp, *NATIVE_LIBS],
+                                  capture_output=True, text=True,
+                                  check=False)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"building native/ failed (make rc {proc.returncode}):"
+                    f"\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+            for name in NATIVE_LIBS:
+                os.replace(Path(tmp) / name, NATIVE_DIR / name)
 
 
 def jax_twin(obj):
