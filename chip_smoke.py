@@ -163,6 +163,29 @@ Phases, each of which raises on failure (non-zero exit):
    files, PNGs byte-equal to the serial build's; one
    utils.profiling.device_trace of a sharded step with its top device
    operations.
+13. spec, motion and sort2 (``spec_motion_phase``): (a) the NumPy spec
+   (remap_tpu_torch.spec, no JAX) as the oracle on this host:
+   spec.pipeline.build against builder.build_from_frames on the card,
+   counts zeroed just before the card's build and read just after, on
+   the JAX package's end-to-end clip (tests/test_pipeline_e2e.py: 30
+   frames of 72x96) and on a SPEC_CUT-frame cut of the collect phase's
+   C64 session from its noise frame on at PipelineConfig(): the window
+   crops, collect's frame records relative to each fragment's first
+   frame (against spec.frc.collect's) and the maps byte for byte equal,
+   2 collect fragments (the noise frame, the rest) and every kernel
+   launched on the cut; the spec's seconds and the card build's ms
+   printed.  (b) ops.motion.detect on
+   consecutive frames of a platformer session (utils.gameplay,
+   388x312), half 4, adjusted by the camera's step, and one pair
+   adjusted past the window's clip: equal to the CPU in offset, moving
+   and votes, moving contours on every pair but the clipped one, K4a
+   launched once a detect; ms a detect, and K4a at [1, 312, 388] against
+   its plain version.  (c) table_mode="sort2" (torch ops, no kernel):
+   the streaming step at the bench configuration over 4 batches equal
+   to the CPU's in every output, K1 and K3 launched once a step and K2
+   never, its ms beside the topk step's; on iid noise (96x64, capacity
+   512) region 6's chunk-quota flag set; on the clip's frames the sort2
+   tables equal K2's wherever no chunk overflows.
 
 The line before the last is a JSON object of the kernels: for each, its
 launches on the main path that runs it, its largest difference from the
@@ -188,7 +211,8 @@ xcorr collect path's (extract_medians_xcorr, blit_xcorr) the launches
 of collect() under xcorr, and the multi-device phase's
 (extract_band_vga_s2/s4: K1 on a band of VGA frame rows plus its halo;
 blit_band_vga_s2/s4: K3 into a band of atlas rows with a RowClip) one
-VGA grid_vote sharded step's at that space.  Launches count wrapper calls: a K2 call
+VGA grid_vote sharded step's at that space, and cc_labels_motion (K4a on
+one [1, 312, 388] frame) phase 13's motion detects.  Launches count wrapper calls: a K2 call
 launches two kernels, a count and a scan, and its time covers both.  The
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the script
 exits non-zero and prints no result.
@@ -3308,6 +3332,306 @@ def multi_device_phase(dev, counters: dict, maps, smi: str) -> list:
     return entries
 
 
+SPEC_CUT = 12              # spec phase: C64 frames from the noise frame on
+MOTION_SEED = 3            # motion: the platformer session's seed and the
+MOTION_PAIRS = range(50, 60)   # frames t of its pairs (t - 1, t)
+MOTION_FAR = (90, -80)     # an adjustment past the window's clip (+-68)
+E2E_CLIP = dict(n_frames=30, frame_hw=(72, 96), world_hw=(200, 260), seed=7,
+                hud_rows=8, border=4, max_step=4, n_sprites=1, sprite_size=5)
+
+
+@contextlib.contextmanager
+def recorded_spec(rec: dict):
+    """While ``spec.pipeline.build`` runs, record its window
+    (``spec.aws.scan``) and each fragment's frame records as
+    ``spec.frc.collect`` leaves them: (number, position)."""
+    from remap_tpu_torch.spec import aws, frc
+
+    scan, collect = aws.scan, frc.collect
+
+    def rec_scan(frames, *args, **kwargs):
+        rec["window"] = scan(frames, *args, **kwargs)
+        return rec["window"]
+
+    def rec_collect(frames, layout):
+        fragments = collect(frames, layout)
+        rec["fragments"] = [[(r.number, r.position) for r in f.frames]
+                            for f in fragments]
+        return fragments
+
+    aws.scan, frc.collect = rec_scan, rec_collect
+    try:
+        yield rec
+    finally:
+        aws.scan, frc.collect = scan, collect
+
+
+def relative_records(fragments: list) -> list:
+    """Each fragment's (number, position relative to its first frame)."""
+    out = []
+    for records in fragments:
+        x0, y0 = records[0][1]
+        out.append([(n, (x - x0, y - y0)) for n, (x, y) in records])
+    return out
+
+
+def card_vs_spec(dev, frames, cfg, counters: dict, what: str) -> dict:
+    """The spec pipeline on the host and builder.build_from_frames on the
+    card, counts zeroed just before the card's build and read just after:
+    the windows' crops, collect's frame records relative to each
+    fragment's first frame and the maps byte for byte must be equal."""
+    from remap_tpu_torch.pipeline import builder
+    from remap_tpu_torch.spec import pipeline as spipeline
+
+    rec: dict = {}
+    t0 = time.perf_counter()
+    with recorded_spec(rec):
+        want = spipeline.build(list(frames))
+    spec_s = time.perf_counter() - t0
+
+    collected = []
+
+    class Records(builder.Callbacks):
+        def on_collect(self, result):
+            collected.extend([(r.number, r.position) for r in f.frames]
+                             for f in result.fragments)
+
+    for k in counters.values():
+        k.launches = 0
+    res, build_ms, peak = timed(dev, lambda: builder.build_from_frames(
+        frames, cfg, callbacks=Records(), device=dev))
+    launches = {name: k.launches for name, k in counters.items()}
+    crops = [None if w is None else dataclasses.astuple(w.crop)
+             for w in (rec["window"], res.window)]
+    if crops[0] != crops[1]:
+        raise AssertionError(f"{what}: window crop {crops[1]} on the card, "
+                             f"{crops[0]} in the spec")
+    if relative_records(collected) != relative_records(rec["fragments"]):
+        raise AssertionError(f"{what}: collect's frame records differ from "
+                             "spec.frc.collect's")
+    if len(res.maps) != len(want) or any(
+            a.shape != b.shape or a.tobytes() != b.tobytes()
+            for a, b in zip(res.maps, want)):
+        raise AssertionError(
+            f"{what}: the card's maps {[m.shape for m in res.maps]} differ "
+            f"from the spec's {[m.shape for m in want]}")
+    return {"spec_s": spec_s, "build_ms": build_ms, "peak": peak,
+            "launches": launches, "maps": [m.shape for m in want],
+            "fragments": [len(f) for f in rec["fragments"]],
+            "crop": crops[0]}
+
+
+def spec_oracle(dev, counters: dict, smi: str) -> None:
+    """Phase 13 (a): the card's map build against the NumPy spec
+    (remap_tpu_torch.spec, no JAX) on the JAX package's end-to-end clip
+    and on a SPEC_CUT-frame C64 cut of the collect phase's session that
+    starts at its noise frame (a fragment of its own), at
+    PipelineConfig()'s defaults.  The cut is sized by the spec's time on
+    a loaded host: its artifact filter scans the whole fragment canvas
+    (three steps of the frame wide once the camera has moved both ways),
+    a cost that hardly shrinks with the frame count, and a cut whose two
+    sweeps splice into one fragment costs the spec more than twice as
+    much."""
+    from remap_tpu_torch.config import PipelineConfig
+    from remap_tpu_torch.utils import clips
+
+    e2e = clips.simple_clip(**E2E_CLIP)
+    cfg = PipelineConfig(screen_width=96, screen_height=72,
+                         region_capacity=2048, splice_capacity=4096,
+                         frame_batch=8)
+    got = card_vs_spec(dev, np.stack(e2e.frames), cfg, counters,
+                       "spec e2e clip")
+    log(f"spec e2e clip: {len(e2e.frames)} frames [72x96], crop "
+        f"{got['crop']}, collect fragments {got['fragments']}, maps "
+        f"{got['maps']} byte-equal to spec.pipeline.build's; spec "
+        f"{got['spec_s']:.1f} s on the host, the card's build "
+        f"{got['build_ms']:.1f} ms (peak {mib(got['peak'])}), launches "
+        f"{got['launches']}; on {smi}")
+
+    frames, _ = session_clip(NOISE_AT + SPEC_CUT)
+    cut = frames[NOISE_AT:]
+    got = card_vs_spec(dev, cut, PipelineConfig(), counters, "spec C64 cut")
+    if got["fragments"] != [1, SPEC_CUT - 1] or 0 in got["launches"].values():
+        raise AssertionError(f"spec C64 cut: fragments {got['fragments']}, "
+                             f"launches {got['launches']}")
+    log(f"spec C64 cut: {len(cut)} frames [312x388] (session frames "
+        f"{NOISE_AT}-{NOISE_AT + SPEC_CUT - 1}, the noise frame first) at "
+        f"PipelineConfig(): crop {got['crop']} equal to "
+        f"spec.aws.scan's, collect's frame records equal to spec.frc."
+        f"collect's (fragments {got['fragments']}), maps {got['maps']} "
+        f"byte-equal to spec.pipeline.build's; spec {got['spec_s']:.1f} s "
+        f"on the host, the card's build {got['build_ms']:.1f} ms (peak "
+        f"{mib(got['peak'])}), launches {got['launches']}; on {smi}")
+
+
+def motion_phase(dev, smi: str) -> dict:
+    """Phase 13 (b): ops.motion.detect on consecutive platformer frames at
+    C64 (388x312), half 4, adjusted by the camera's step, and one pair
+    adjusted past the clip; K4a counted from zero over the detects.  The
+    card must equal the CPU exactly; K4a at [1, 312, 388] against its
+    plain version.  Returns K4a's entry."""
+    import torch
+
+    from remap_tpu_torch.ops import cc, motion
+    from remap_tpu_torch.ops.kernels import cc as kcc
+    from remap_tpu_torch.utils import gameplay
+
+    session = gameplay.play_session(seed=MOTION_SEED,
+                                    n_frames=MOTION_PAIRS[-1] + 1,
+                                    frame_hw=(312, 388))
+    cases = []
+    for t in MOTION_PAIRS:
+        (x0, y0), (x1, y1) = session.camera[t - 1], session.camera[t]
+        cases.append((session.frames[t - 1], session.frames[t],
+                      (x1 - x0, y1 - y0)))
+    cases.append((session.frames[-2], session.frames[-1], MOTION_FAR))
+    pairs = [(torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev),
+              adj) for a, b, adj in cases]
+    motion.detect(*pairs[0])   # warm-up, not counted
+    torch.cuda.synchronize()
+
+    kcc.label_components_cuda.launches = 0
+    got = [motion.detect(*p) for p in pairs]
+    torch.cuda.synchronize()
+    launches = kcc.label_components_cuda.launches
+    if launches != len(pairs):
+        raise AssertionError(f"motion: K4a launched {launches} times for "
+                             f"{len(pairs)} detects")
+    moving = []
+    for (a, b, adj), res in zip(cases, got):
+        want = motion.detect(a, b, adj, device="cpu")
+        for name, g, w in zip(res._fields, res, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"motion {adj}: {name} differs between "
+                                     "the card and the CPU")
+        moving.append(int(want.moving.sum()))
+    if not all(moving[:-1]) or moving[-1]:
+        raise AssertionError(f"motion: moving contours {moving}")
+    detect_ms = [time_ms(lambda p=p: motion.detect(*p), 10) for p in pairs]
+    host = host_ms(dev, lambda: motion.detect(*pairs[1]), 10)
+
+    curr = pairs[1][1][None].contiguous()
+    err = require_equal((kcc.label_components_cuda(curr),),
+                        (cc.label_components(curr),), "cc labels motion")
+    ms = time_ms(lambda: kcc.label_components_cuda(curr), 50)
+    plain = time_ms(lambda: cc.label_components(curr), 3)
+    bound = bound_ms((curr,), (torch.empty_like(curr, dtype=torch.int32),))
+    log(f"motion: {len(pairs)} detects at [312x388], half 4 (adjustments "
+        f"{[c[2] for c in cases]}): offset, moving and votes equal on the "
+        f"CPU, moving contours {moving}; K4a launched once a detect "
+        f"({launches}); detect {statistics.median(detect_ms):.3f} ms (CUDA "
+        f"events, median; {min(detect_ms):.3f}-{max(detect_ms):.3f}), "
+        f"{host:.3f} ms of host wall; K4a [1,312,388] {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {bound:.5f} ms (5 B/px), share "
+        f"{bound / ms:.4f}; on {smi}")
+    entry = kernel_entry("cc_labels_motion", "remap_tpu/ops/pallas/cc.py:168",
+                         "cc.cu", err, ms, plain, bound)
+    entry["launches"] = launches
+    return entry
+
+
+def sort2_phase(dev, frames_np, smi: str) -> None:
+    """Phase 13 (c): table_mode="sort2" (torch ops on the card).  The
+    streaming step at the bench configuration over N_BATCHES batches,
+    counts zeroed just before and read just after (K1 and K3 once a step,
+    K2 never): every output equal to the CPU's.  Sort2 tables on iid
+    noise set the chunk-quota flag (region 6); on the clip's frames they
+    equal K2's tables wherever no chunk overflows."""
+    import dataclasses as dc
+
+    import torch
+
+    from remap_tpu_torch.core.regions import make_layout
+    from remap_tpu_torch.ops import kpe, tables
+    from remap_tpu_torch.ops.kernels import blit, extract
+    from remap_tpu_torch.ops.kernels import tables as ktables
+    from remap_tpu_torch.parallel.sharded import make_streaming_step
+
+    cfg, layout = bench_config()
+    cfg = dc.replace(cfg, table_mode="sort2")
+    wrappers = {"extract": extract.extract_dense_cuda,
+                "tables": ktables.build_tables_cuda,
+                "blit": blit.blit_frames_cuda}
+    batches = np.split(frames_np, N_BATCHES)
+    init, step = make_streaming_step(layout, cfg, atlas_pad=ATLAS_PAD,
+                                     device=dev)
+    g_batches = [torch.as_tensor(b, device=dev) for b in batches]
+    step(g_batches[0], init())   # warm-up, not counted
+    torch.cuda.synchronize()
+    for k in wrappers.values():
+        k.launches = 0
+    state, outs = init(), []
+    for b in g_batches:
+        out = step(b, state)
+        state = out[-1]
+        outs.append(host_outputs(out))
+    launches = {name: k.launches for name, k in wrappers.items()}
+    if launches != {"extract": N_BATCHES, "tables": 0, "blit": N_BATCHES}:
+        raise AssertionError(f"sort2 step: launches {launches}")
+    c_init, c_step = make_streaming_step(layout, cfg, atlas_pad=ATLAS_PAD,
+                                         device="cpu")
+    state = c_init()
+    t0 = time.perf_counter()
+    for i, b in enumerate(batches):
+        out = c_step(torch.as_tensor(b), state)
+        state = out[-1]
+        for name, want in host_outputs(out).items():
+            if not torch.equal(outs[i][name], want):
+                raise AssertionError(f"sort2 step batch {i}: {name} differs "
+                                     "between the card and the CPU")
+    cpu_s = time.perf_counter() - t0
+    flagged = sum(int(o["table"].sum()) for o in outs)
+    state = init()
+    sort2_ms = host_ms(dev, lambda: step(g_batches[1], state), 10)
+    t_init, t_step = make_streaming_step(
+        layout, dc.replace(cfg, table_mode="topk"), atlas_pad=ATLAS_PAD,
+        device=dev)
+    t_state = t_init()
+    topk_ms = host_ms(dev, lambda: t_step(g_batches[1], t_state), 10)
+
+    small = make_layout(96, 64, 4, 2, 16)
+    noise = torch.as_tensor(np.random.default_rng(32).integers(
+        0, 16, (1, 64, 96), dtype=np.uint8), device=dev)
+    dense = kpe.extract_dense(noise, small)
+    t = tables.build_tables(dense.weight, dense.codes, small, 512, "sort2")
+    count = int(t.wcounts[0, 6, 1:].sum())
+    if not bool(t.overflow[0, 6]) or count > 512:
+        raise AssertionError(f"sort2 on noise: overflow[0, 6] "
+                             f"{bool(t.overflow[0, 6])} ({count} keypoints)")
+
+    dense = kpe.extract_dense(g_batches[0], layout)
+    s2 = tables.build_tables(dense.weight, dense.codes, layout, CAPACITY,
+                             "sort2")
+    k2 = tables.build_tables(dense.weight, dense.codes, layout, CAPACITY)
+    keep = ~s2.overflow
+    if not bool(keep.any()):
+        raise AssertionError("sort2 on the clip: every region table flagged")
+    for name, a, b in zip(s2._fields, s2, k2):
+        if not torch.equal(a[keep], b[keep]):
+            raise AssertionError(f"sort2 vs K2 on the clip: {name} differs "
+                                 "where no chunk overflows")
+    log(f"sort2: the streaming step at the bench configuration "
+        f"(table_mode='sort2'), {N_BATCHES} batches of {BATCH}: every output "
+        f"equal on the CPU ({cpu_s:.1f} s there), {flagged} frames flagged, "
+        f"launches {launches}; step {sort2_ms:.3f} ms against topk's (K2) "
+        f"{topk_ms:.3f} ms (host wall, synchronised, 10 steps); iid noise "
+        f"96x64 capacity 512: overflow[0, 6] set by the chunk quota alone "
+        f"({count} keypoints); the clip's {int(keep.sum())} of "
+        f"{keep.numel()} region tables without a full chunk equal K2's; on "
+        f"{smi}")
+
+
+def spec_motion_phase(dev, counters: dict, frames_np, smi: str) -> list:
+    """Phase 13: the spec oracle, motion and sort2.  Returns K4a's motion
+    entry."""
+    t_phase = time.perf_counter()
+    spec_oracle(dev, counters, smi)
+    entry = motion_phase(dev, smi)
+    sort2_phase(dev, frames_np, smi)
+    log(f"spec, motion and sort2 phase: {time.perf_counter() - t_phase:.1f} s")
+    return [entry]
+
+
 def build_counters() -> dict:
     """The kernel wrappers a map build launches, by name (each counts its
     launches in ``.launches``)."""
@@ -3428,6 +3752,7 @@ def main() -> int:
     grid_perf = cli_phase(dev, map_counters, smi, maps, stages)
     kernels += matcher_phase(dev, map_counters, smi, grid_perf)
     kernels += multi_device_phase(dev, map_counters, maps, smi)
+    kernels += spec_motion_phase(dev, map_counters, frames, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ remap_tpu_torch.cli <frames-dir>``.
 
 - ``ops.kpe``       keypoint/median extraction, and its medians-only
   instantiation (kernel ``csrc/extract.cu``)
-- ``ops.tables``    per-region keypoint tables (kernel ``csrc/tables.cu``)
+- ``ops.tables``    per-region keypoint tables (kernel ``csrc/tables.cu``;
+  table mode "sort2" in torch ops)
 - ``ops.kpm``       sort-merge code join, vote counting, Borda declare
 - ``ops.kernels.blit``  the colour-vote blit (kernel ``csrc/blit.cu``)
 - ``ops.cc``, ``ops.kernels.cc``  component labels and stats (kernel
@@ -23,6 +24,7 @@ remap_tpu_torch.cli <frames-dir>``.
   artifact filter (plain tensor code)
 - ``ops.correlate``, ``models``  the correlation matchers on ``torch.fft``
   and the xcorr and pyramid families built on them
+- ``ops.motion``    contour motion detection (labels by ``csrc/cc.cu``)
 - ``parallel.sharded``  the streaming step and the multi-clip step
 - ``pipeline.window``, ``pipeline.collect``, ``pipeline.stream``,
   ``pipeline.splice``, ``pipeline.foreground``, ``pipeline.clean``,
@@ -37,10 +39,11 @@ remap_tpu_torch.cli <frames-dir>``.
 - ``convert``       carries JAX stream state, fragments and configs (as
   numpy and plain values) into the port, and numpy back
 - ``config``, ``core.regions``, ``core.palette``, ``core.geometry``,
-  ``spec.arf``, ``spec.nic``, ``utils.clips``, ``utils.gameplay``,
-  ``utils.wear``  the port's own copies of the JAX package's config,
-  grid layout, palette, rectangles, artifact-filter and RLE specs, clip
-  makers, session simulator and capture-wear models
+  ``spec``, ``utils.clips``, ``utils.gameplay``, ``utils.wear``  the
+  port's own copies of the JAX package's config, grid layout, palette,
+  geometry helpers, NumPy executable spec (``spec.pipeline.build`` is
+  the oracle on a host without JAX), clip makers, session simulator and
+  capture-wear models
 
 Dispatch follows the tensors: CUDA tensors run the kernels, CPU tensors
 run each kernel's plain PyTorch version.  The entry points run on the

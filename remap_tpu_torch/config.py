@@ -120,12 +120,13 @@ class PipelineConfig:
     #: host blocks fetching the oldest one's outputs.  Depth 1 is classic
     #: double buffering (drain one batch late); deeper chains amortize
     #: the per-fetch round trip across k dispatches.  Device memory grows
-    #: by one batch of outputs per slot.  (The JAX collect loop reads
-    #: it; the port has not ported that loop yet.)
+    #: by one batch of outputs per slot.  (The port's collect loop reads
+    #: it as the JAX one does: pipeline/collect.py's match pass.)
     collect_drain_depth: int = 8
     #: Region-table compaction backend.  The port builds the flat "topk"
-    #: tables for "auto", "topk", "pallas" and "sort", and raises for
-    #: "sort2" (parallel/sharded.py).  All modes
+    #: tables for "auto", "topk", "pallas" and "sort" (the CUDA kernel on
+    #: the card), and the two-level chunk sort for "sort2" (torch ops,
+    #: ops/tables.py).  All modes
     #: ("topk", "sort", "sort2") select the same first-capacity row-major
     #: keypoints; "sort2" additionally flags overflow when a 512-px chunk
     #: exceeds its keep quota (ops.tables.SORT2_QUOTA) — the escalation
@@ -147,8 +148,9 @@ class PipelineConfig:
     #: Frame-store device residency: "hbm" keeps packed frames (and
     #: medians, when stored) mirrored in device memory after collect so
     #: the foreground pass never re-crosses the host->device link; "host"
-    #: disables the mirrors; "auto" picks by platform.  (Read by the JAX
-    #: collect loop; the port's ``FrameStore`` takes its budget directly.)
+    #: disables the mirrors; "auto" picks by platform ("hbm" on CUDA,
+    #: "host" on the CPU: the port's collect, pipeline/collect.py
+    #: ``_store_budget``).
     frame_store: str = "auto"
     #: Frames per device dispatch in the batched collect path.
     frame_batch: int = 128

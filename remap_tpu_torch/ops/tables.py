@@ -7,7 +7,11 @@ the canonical values of the TPU table kernel (ops/pallas/tables.py): the
 code of the region's first pixel and position ``(x_lo, y_lo)``.
 
 ``build_tables`` runs the CUDA kernel (``ops.kernels.tables``) on CUDA
-tensors and :func:`build_tables_plain` on CPU tensors.
+tensors and :func:`build_tables_plain` on CPU tensors.  Table mode "sort2"
+(``remap_tpu/ops/tables.py:102 _region_table_sort2``, XLA code in the JAX
+package, no TPU kernel) is torch ops on either device: the same rows while
+no 512-px chunk holds more than ``SORT2_QUOTA`` keypoints, and an overflow
+flag where one does.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from remap_tpu_torch.core.regions import GridLayout
 from remap_tpu_torch.device import uses_kernels
@@ -93,19 +98,97 @@ def _region_table(weight, codes, span, capacity):
             total > capacity)
 
 
-def build_tables_plain(weight: torch.Tensor, codes: torch.Tensor,
-                       layout: GridLayout, capacity: int) -> RegionTables:
-    """The plain PyTorch table build; regions stack on axis 1."""
-    per_region = [_region_table(weight, codes, span, capacity)
+def _stack_regions(region_table, weight, codes, layout: GridLayout,
+                   capacity: int) -> RegionTables:
+    """``region_table`` of every region, stacked on axis 1."""
+    per_region = [region_table(weight, codes, span, capacity)
                   for span in region_spans(layout)]
     return RegionTables(*(torch.stack(parts, dim=1)
                           for parts in zip(*per_region)))
 
 
+def build_tables_plain(weight: torch.Tensor, codes: torch.Tensor,
+                       layout: GridLayout, capacity: int) -> RegionTables:
+    """The plain PyTorch table build; regions stack on axis 1."""
+    return _stack_regions(_region_table, weight, codes, layout, capacity)
+
+
+#: "sort2" level-1 chunk length and per-chunk keep quota.  A chunk with
+#: more than QUOTA keypoints trips the table overflow flag.
+SORT2_CHUNK = 512
+SORT2_QUOTA = 128
+
+#: every table mode: "auto", "pallas" (the TPU kernel's selection, here
+#: the CUDA one's) and "sort" give the topk tables, "sort2" its own
+TABLE_MODES = ("auto", "topk", "pallas", "sort", "sort2")
+
+
+def _region_table_sort2(weight, codes, span, capacity):
+    """One region's "sort2" table over a batch: the first ``SORT2_QUOTA``
+    keypoints of each 512-px chunk by their local index (level 1), then
+    the first ``capacity`` of those by their region index (level 2).
+    The level-1 keys (uint16 in JAX, sentinel 0x7FFF) and the level-2 keys
+    (uint32, sentinel 1 << 30) ride in int32.  Valid keys are distinct and
+    only sentinels tie, so any sort gives JAX's sorted values."""
+    x_lo, x_hi, y_lo, y_hi = span
+    b = weight.shape[0]
+    rw = x_hi - x_lo
+    wflat = weight[:, y_lo:y_hi, x_lo:x_hi].reshape(b, -1)
+    cflat = codes[:, y_lo:y_hi, x_lo:x_hi].reshape(b, -1, 4)
+    n = wflat.shape[1]
+    dev = weight.device
+    s = SORT2_CHUNK
+    flags = F.pad(wflat > 0, (0, (-n) % s)).reshape(b, -1, s)
+    nch = flags.shape[1]
+
+    local = torch.arange(s, dtype=torch.int32, device=dev)
+    kept = torch.where(flags, local, 0x7FFF).sort(dim=2).values
+    kept = kept[:, :, :SORT2_QUOTA]
+    sent = 1 << 30
+    base = torch.arange(nch, dtype=torch.int32, device=dev)[None, :, None]
+    glob = torch.where(kept < 0x7FFF, base * s + kept, sent).reshape(b, -1)
+    if glob.shape[1] < capacity:   # tiny regions: pad up to the table
+        glob = F.pad(glob, (0, capacity - glob.shape[1]), value=sent)
+    skey = glob.sort(dim=1).values[:, :capacity]
+
+    valid = skey < sent
+    sel = torch.where(valid, skey, 0).long()
+    out_codes = torch.gather(cflat, 1, sel[..., None].expand(b, capacity, 4))
+    out_pos = torch.stack([sel % rw + x_lo, sel // rw + y_lo],
+                          dim=-1).to(torch.int32)
+    w1 = (wflat == 1).sum(dim=1, dtype=torch.int32)
+    w2 = (wflat == 2).sum(dim=1, dtype=torch.int32)
+    wcounts = torch.stack([torch.zeros_like(w1), w1, w2], dim=-1)
+    chunk_ovf = (flags.sum(dim=-1) > SORT2_QUOTA).any(dim=-1)
+    return (out_codes, out_pos, valid, wcounts,
+            (w1 + w2 > capacity) | chunk_ovf)
+
+
+def build_tables_sort2(weight: torch.Tensor, codes: torch.Tensor,
+                       layout: GridLayout, capacity: int) -> RegionTables:
+    """The "sort2" table build (torch ops on the tensors' device); regions
+    stack on axis 1.  Invalid rows hold the region's first pixel's code
+    and position, as the topk tables' do."""
+    return _stack_regions(_region_table_sort2, weight, codes, layout,
+                          capacity)
+
+
+def check_table_mode(mode: str) -> None:
+    """Raise ``ValueError`` for a table mode that is not one of
+    :data:`TABLE_MODES`."""
+    if mode not in TABLE_MODES:
+        raise ValueError(f"unknown table_mode {mode!r}")
+
+
 def build_tables(weight: torch.Tensor, codes: torch.Tensor,
-                 layout: GridLayout, capacity: int) -> RegionTables:
+                 layout: GridLayout, capacity: int,
+                 mode: str = "topk") -> RegionTables:
     """weight [B, H, W] uint8, codes [B, H, W, 4] int32 -> RegionTables:
-    the CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+    for ``mode`` "sort2" :func:`build_tables_sort2`, for the others the
+    CUDA kernel on CUDA tensors and the plain version on CPU tensors."""
+    check_table_mode(mode)
+    if mode == "sort2":
+        return build_tables_sort2(weight, codes, layout, capacity)
     if uses_kernels(weight):
         return RegionTables(*ktab.build_tables_cuda(
             weight, codes, region_spans(layout), capacity))

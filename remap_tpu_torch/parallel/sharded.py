@@ -92,9 +92,9 @@ def make_pipeline_step(layout: GridLayout, cfg: PipelineConfig,
     declared offsets, anchored ``atlas_pad`` into each clip's ``(H +
     2 pad) x (W + 2 pad)`` window and clamped to it, and every clip's
     frames are voted in one K3 launch into a canvas that stacks the clips'
-    windows.  Frame 0 of each clip is unmatched.  Raises for a
-    ``cfg.table_mode`` the port does not implement."""
-    check_table_mode(cfg.table_mode)
+    windows.  Frame 0 of each clip is unmatched.  Raises ``ValueError``
+    for an unknown ``cfg.table_mode``."""
+    table_ops.check_table_mode(cfg.table_mode)
     h, w = layout.height, layout.width
     ah, aw = h + 2 * atlas_pad, w + 2 * atlas_pad
     get_device(device)   # raises without CUDA unless the CPU is named
@@ -135,7 +135,7 @@ def _align(images: torch.Tensor, dense, layout: GridLayout,
     dev = images.device
     if pair_match is None:
         tabs = table_ops.build_tables(dense.weight, dense.codes, layout,
-                                      cfg.region_capacity)
+                                      cfg.region_capacity, cfg.table_mode)
         clips = [a.reshape((c, t) + a.shape[1:]) for a in tabs]
         prev = table_ops.RegionTables(*(
             a[:, :-1].reshape((n,) + a.shape[2:]) for a in clips))
@@ -219,24 +219,6 @@ def _shift_atlas(dots: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return out * (y_ok[None, :, None] & x_ok[None, None, :])
 
 
-#: table modes whose tables the port's topk ``build_tables`` gives: "auto"
-#: resolves to topk off the TPU for the stream (remap_tpu/ops/tables.py
-#: ``resolve_table_mode``), "pallas" is the TPU kernel of the same
-#: selection, and "sort" is documented identical to topk
-TOPK_TABLE_MODES = ("auto", "topk", "pallas", "sort")
-
-
-def check_table_mode(mode: str) -> None:
-    """Raise for a table mode whose tables the port does not build:
-    ``NotImplementedError`` for "sort2" (its own chunk-quota overflow
-    flag, remap_tpu/ops/tables.py), ``ValueError`` for an unknown mode."""
-    if mode == "sort2":
-        raise NotImplementedError(
-            "table_mode='sort2' is not implemented in the port")
-    if mode not in TOPK_TABLE_MODES:
-        raise ValueError(f"unknown table_mode {mode!r}")
-
-
 def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
                         atlas_pad: int = 128, device=None):
     """Build ``(init_state, step)``.
@@ -246,9 +228,9 @@ def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
     device and returns ``(offsets [T, 2] int32, matched [T] bool,
     StreamFlags, strayed [] bool, new_state)``.  The stitch window follows
     the camera (re-anchoring in-device); ``strayed`` fires when one
-    batch's position span exceeds the window itself.  Raises for a
-    ``cfg.table_mode`` the port does not implement."""
-    check_table_mode(cfg.table_mode)
+    batch's position span exceeds the window itself.  Raises
+    ``ValueError`` for an unknown ``cfg.table_mode``."""
+    table_ops.check_table_mode(cfg.table_mode)
     h, w = layout.height, layout.width
     ah, aw = h + 2 * atlas_pad, w + 2 * atlas_pad
     dev = get_device(device)
@@ -271,7 +253,7 @@ def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
         t = images.shape[0]
         dense = kpe_ops.extract_dense(images, layout)
         tabs = table_ops.build_tables(dense.weight, dense.codes, layout,
-                                      cfg.region_capacity)
+                                      cfg.region_capacity, cfg.table_mode)
         prev = table_ops.RegionTables(*(
             torch.cat([c, a[:-1]], dim=0) for c, a in zip(state.carry, tabs)
         ))
@@ -433,10 +415,10 @@ def make_sharded_step(mesh: Mesh, layout: GridLayout, cfg: PipelineConfig,
       dropping every vote outside it.
 
     The outputs equal ``make_pipeline_step``'s on the same clips
-    (:func:`assemble` puts them together).  Raises for a table mode the
-    port does not implement, and where a shard's device or a copy
-    fails: nothing drops back to the serial step."""
-    check_table_mode(cfg.table_mode)
+    (:func:`assemble` puts them together).  Raises for an unknown table
+    mode, and where a shard's device or a copy fails: nothing drops back
+    to the serial step."""
+    table_ops.check_table_mode(cfg.table_mode)
     h, w = layout.height, layout.width
     ah, aw = h + 2 * atlas_pad, w + 2 * atlas_pad
     pair_match = (None if cfg.matcher == "grid_vote"

@@ -33,7 +33,7 @@ from remap_tpu_torch.pipeline import foreground as fg_stage
 from remap_tpu_torch.pipeline import splice as splice_stage
 from remap_tpu_torch.pipeline import window as window_stage
 from remap_tpu_torch.pipeline.state import Fragment
-from remap_tpu_torch.pipeline.window import WindowInfo
+from remap_tpu_torch.spec.aws import WindowInfo
 
 
 class Callbacks:

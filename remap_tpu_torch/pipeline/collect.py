@@ -46,9 +46,7 @@ from remap_tpu_torch.ops import atlas as atlas_ops
 from remap_tpu_torch.ops import kpe as kpe_ops
 from remap_tpu_torch.ops import tables as table_ops
 from remap_tpu_torch.ops.kernels import blit as kblit
-from remap_tpu_torch.parallel.sharded import (
-    check_table_mode, match_pairs as _match,
-)
+from remap_tpu_torch.parallel.sharded import match_pairs as _match
 from remap_tpu_torch.pipeline.state import (
     Fragment, FrameRef, FrameStore, pack_nibbles_batch, pack_nibbles_device,
     simulate_growth, unpack_nibbles_device,
@@ -105,7 +103,7 @@ def make_collect_step(layout: GridLayout, cfg: PipelineConfig):
     ``images``.  The carry is (the previous batch's last tables, its last
     frame): the grid_vote matcher reads the tables, the correlation
     families the frame."""
-    check_table_mode(cfg.table_mode)
+    table_ops.check_table_mode(cfg.table_mode)
     frame_matcher = (None if cfg.matcher == "grid_vote"
                      else models.get_matcher(cfg.matcher, cfg))
 
@@ -123,7 +121,7 @@ def make_collect_step(layout: GridLayout, cfg: PipelineConfig):
                     (carry_tabs, new_frame))
         dense = kpe_ops.extract_dense(images, layout)
         tabs = table_ops.build_tables(dense.weight, dense.codes, layout,
-                                      cfg.region_capacity)
+                                      cfg.region_capacity, cfg.table_mode)
         prev = table_ops.RegionTables(*(
             torch.cat([c, t[:-1]], dim=0) for c, t in zip(carry_tabs, tabs)))
         res = _match(prev, tabs, layout, cfg)
@@ -175,9 +173,9 @@ def match_pass(
 
     Returns (offsets, matched, table_flags, join_flags, range_flags,
     kp_need): the three per-frame escalation signals kept apart (table
-    capacity of frame t's tables, join truncation and the vote-radius
-    bound of the (t-1, t) declaration), and the clip's true maximum
-    per-region keypoint count."""
+    capacity or sort2-quota overflow of frame t's tables, join
+    truncation and the vote-radius bound of the (t-1, t) declaration),
+    and the clip's true maximum per-region keypoint count."""
     dev = get_device(device)
     step = make_collect_step(layout, cfg)
     b = cfg.frame_batch
@@ -299,12 +297,12 @@ def make_pair_step(layout: GridLayout, cfg: PipelineConfig):
     laid out as the collect step's (tab flags either endpoint's, kp_need
     the larger).  It is the grid_vote matcher's: the correlation families
     raise no flag, so the ladder never re-matches their pairs."""
-    check_table_mode(cfg.table_mode)
+    table_ops.check_table_mode(cfg.table_mode)
 
     def tables(images):
         dense = kpe_ops.extract_dense(images, layout)
         return table_ops.build_tables(dense.weight, dense.codes, layout,
-                                      cfg.region_capacity)
+                                      cfg.region_capacity, cfg.table_mode)
 
     def pair_step(prev_images: torch.Tensor, curr_images: torch.Tensor):
         tp, tc = tables(prev_images), tables(curr_images)
@@ -504,8 +502,7 @@ def collect(
             if ecfg.table_mode == "sort2":
                 # sort2's chunk-quota flag is density-based: capacity can
                 # never clear it, so switch to the quota-free topk
-                # selection first (the port builds no sort2 tables, so
-                # no port run reaches this rung)
+                # selection first, with everything else unchanged
                 ecfg = dataclasses.replace(ecfg, table_mode="topk")
             elif ecfg.region_capacity >= MAX_CAPACITY:
                 break  # give up: caller sees overflow_frames > 0

@@ -1,5 +1,5 @@
-"""Action-window scan stage (port of remap_tpu/pipeline/window.py, with
-``WindowInfo`` from remap_tpu/spec/aws.py).
+"""Action-window scan stage (port of remap_tpu/pipeline/window.py; its
+``WindowInfo`` is the spec's, ``spec/aws.py``, as in the JAX package).
 
 Frames stream through the device in batches: one dispatch advances the
 persistent equality heatmap over the whole batch and flags the frames that
@@ -25,7 +25,6 @@ batches packed by the native reader, so nothing packs on the host.
 
 from __future__ import annotations
 
-import dataclasses
 import itertools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -41,21 +40,7 @@ from remap_tpu_torch.ops import aws as aws_ops
 from remap_tpu_torch.pipeline.state import (
     pack_nibbles_batch, unpack_nibbles_device,
 )
-
-
-@dataclasses.dataclass
-class WindowInfo:
-    """The winning contour's bbox in inclusive coordinates (the port's copy
-    of remap_tpu/spec/aws.py ``WindowInfo``)."""
-
-    raw_bounds: Rect
-
-    @property
-    def crop(self) -> Rect:
-        """Exclusive crop rect into the screen (rows/cols kept)."""
-        b = self.raw_bounds
-        return Rect(left=b.left + 1, top=b.top + 1, right=b.right - 1,
-                    bottom=b.bottom - 1)
+from remap_tpu_torch.spec.aws import WindowInfo
 
 
 def scan(frames: Iterable[np.ndarray], cfg: PipelineConfig,

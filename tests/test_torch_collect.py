@@ -192,14 +192,53 @@ def test_stitcher_matches_jax():
 
 
 def test_collect_edges():
-    """An empty clip gives an empty result; table mode sort2 is not ported
-    and raises."""
+    """An empty clip gives an empty result; table mode sort2 runs as JAX
+    runs it (no chunk overflows on these frames); an unknown table mode
+    raises."""
     res = tcollect.collect(iter([]), CFG, device="cpu")
     assert res.fragments == [] and res.offsets.shape == (0, 2)
     frames = _break_frames()[:3]
-    with pytest.raises(NotImplementedError, match="sort2"):
-        tcollect.collect(frames, dataclasses.replace(CFG, table_mode="sort2"),
+    got = _collect_both(frames, dataclasses.replace(CFG, table_mode="sort2"))
+    assert got.matched[1:].all() and got.overflow_frames == 0
+    with pytest.raises(ValueError, match="bogus"):
+        tcollect.collect(frames, dataclasses.replace(CFG, table_mode="bogus"),
                          device="cpu")
+
+
+def _stripe_frames():
+    """tests/test_collect.py's sort2 escalation clip: a dense stripe band
+    packs far more than SORT2_QUOTA keypoints into a 512-px chunk."""
+    rng = np.random.default_rng(11)
+    world = rng.integers(0, 16, size=(128, 160), dtype=np.uint8)
+    frames = []
+    for x, y in [(10, 10), (12, 11), (15, 13), (14, 16)]:
+        f = world[y:y + 64, x:x + 96].copy()
+        f[8:20] = np.tile(np.array([[1, 9], [9, 1]], np.uint8), (6, 48))
+        frames.append(f)
+    return frames
+
+
+@pytest.mark.parametrize("clip,strict", [
+    ("stripes", True), ("stripes", False), ("break", True)])
+def test_collect_sort2_matches_jax(clip, strict):
+    """collect() under table_mode="sort2" equals JAX's: the strict ladder
+    meets the chunk-quota flag and switches to the topk tables (JAX's
+    ``collect.py:625`` rung), and without the ladder the quota-cut tables
+    decide the declarations in both packages alike."""
+    frames = _stripe_frames() if clip == "stripes" else _break_frames()
+    cfg = dataclasses.replace(CFG, table_mode="sort2", frame_batch=4)
+    want = jcollect.collect(frames, jax_twin(cfg), strict=strict)
+    got = tcollect.collect(frames, cfg, strict=strict, device="cpu")
+    _assert_host_equal(convert.collect_result_to_numpy(got),
+                       convert.collect_result_to_numpy(want))
+    if strict:
+        assert got.overflow_frames == 0
+        topk = tcollect.collect(frames, dataclasses.replace(
+            cfg, table_mode="topk"), device="cpu")
+        np.testing.assert_array_equal(got.offsets, topk.offsets)
+        np.testing.assert_array_equal(got.matched, topk.matched)
+    else:
+        assert got.overflow_frames > 0
 
 
 # ---- the correlation families ------------------------------------------------

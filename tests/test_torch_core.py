@@ -383,6 +383,19 @@ def test_rect_and_window_info_match_jax():
             dataclasses.astuple(jaws.WindowInfo(want).crop)
 
 
+def test_overlap_spans_match_jax():
+    """``overlap_spans`` (kpm.hpp:302-315's ``get_limits``) against the
+    JAX package's on every sign of the shift and extents that do and do
+    not overlap."""
+    from remap_tpu.core import geometry as jgeometry
+    from remap_tpu_torch.core import geometry as tgeometry
+
+    for delta in range(-12, 13):
+        for previous, current in ((8, 8), (5, 9), (9, 5), (1, 12)):
+            assert tgeometry.overlap_spans(delta, previous, current) == \
+                jgeometry.overlap_spans(delta, previous, current)
+
+
 def _same_session(got, want):
     assert len(got.frames) == len(want.frames)
     np.testing.assert_array_equal(np.stack(got.frames), np.stack(want.frames))
@@ -422,8 +435,11 @@ def test_wear_copy_matches_jax(kwargs):
     _same_session(got, want)
 
 
-@pytest.mark.parametrize("module", ["spec/nic.py", "utils/gameplay.py",
-                                    "utils/wear.py"])
+@pytest.mark.parametrize("module", [
+    "core/geometry.py", "spec/arf.py", "spec/aws.py", "spec/cte.py",
+    "spec/fde.py", "spec/fdf.py", "spec/fgm.py", "spec/fgs.py",
+    "spec/frc.py", "spec/kpe.py", "spec/kpm.py", "spec/nic.py",
+    "spec/pipeline.py", "utils/gameplay.py", "utils/wear.py"])
 def test_copied_sources_differ_only_in_their_docstrings(module):
     """The port's copies of the JAX-free modules are the originals' code
     line for line: only the module docstring and the port's own import

@@ -21,6 +21,7 @@ from remap_tpu_torch.utils import clips as testing
 from remap_tpu_torch.ops import cc as tcc
 from remap_tpu_torch.ops import fde as tfde
 from remap_tpu_torch.ops import kpe as tkpe
+from remap_tpu_torch.ops import motion as tmotion
 from remap_tpu_torch.ops import _build
 from remap_tpu_torch.ops import tables as ttab
 from remap_tpu_torch.ops.kernels import blit as kblit
@@ -467,3 +468,41 @@ def test_foreground_cuda_matches_cpu(cuda_device):
                               to_torch(pos), compute_medians=True)
     assert torch.equal(got.cpu(), want)
     assert bool(want.any())
+
+
+def test_motion_cuda_matches_cpu(cuda_device):
+    """motion.detect on the card (its labels through K4a, one launch a
+    detect) equals the CPU plain path at C64 on consecutive platformer
+    frames, with the camera's step and with an adjustment past the
+    window's clip."""
+    from remap_tpu_torch.utils import gameplay
+
+    session = gameplay.play_session(seed=3, n_frames=57, frame_hw=C64)
+    for t, adjustment in ((54, None), (56, None), (56, (90, -80))):
+        if adjustment is None:
+            (x0, y0), (x1, y1) = session.camera[t - 1], session.camera[t]
+            adjustment = (x1 - x0, y1 - y0)
+        prev, curr = session.frames[t - 1], session.frames[t]
+        before = kcc.label_components_cuda.launches
+        got = tmotion.detect(to_torch(prev, cuda_device),
+                             to_torch(curr, cuda_device), adjustment)
+        assert kcc.label_components_cuda.launches == before + 1
+        want = tmotion.detect(prev, curr, adjustment, device="cpu")
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_sort2_tables_cuda_match_cpu(cuda_device):
+    """table_mode="sort2" (torch ops, no kernel) gives the CPU's tables on
+    the card, chunk-quota flags included, and never launches K2."""
+    layout = make_layout(96, 64, 4, 2, 16)
+    images = _random_frames(cuda_device, 4, 64, 96, seed=9)
+    dense = tkpe.extract_dense(images, layout)
+    before = ktab.build_tables_cuda.launches
+    got = ttab.build_tables(dense.weight, dense.codes, layout, 512, "sort2")
+    assert ktab.build_tables_cuda.launches == before
+    want = ttab.build_tables(dense.weight.cpu(), dense.codes.cpu(), layout,
+                             512, "sort2")
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert bool(want.overflow.any())

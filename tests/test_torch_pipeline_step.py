@@ -71,9 +71,23 @@ def test_pipeline_step_matches_jax(family):
 
 
 def test_pipeline_step_table_modes():
-    with pytest.raises(NotImplementedError, match="sort2"):
+    """table_mode="sort2" gives JAX's outputs (clip 1's noise frame trips
+    the chunk quota, so its tables differ from topk's); an unknown table
+    mode or matcher raises."""
+    images = _clips(3, 5, seed=23)
+    cfg = dataclasses.replace(CFG, table_mode="sort2")
+    want = jax.jit(jsharded.make_pipeline_step(
+        jax_twin(LAYOUT), jax_twin(cfg), atlas_pad=PAD,
+        use_pallas=False))(images)
+    got = tsharded.make_pipeline_step(LAYOUT, cfg, atlas_pad=PAD,
+                                      device="cpu")(torch.as_tensor(images))
+    for name in ("offsets", "matched", "positions", "atlas"):
+        np.testing.assert_array_equal(
+            to_numpy(getattr(got, name)).astype(np.int64),
+            np.asarray(getattr(want, name)).astype(np.int64), err_msg=name)
+    with pytest.raises(ValueError, match="bogus"):
         tsharded.make_pipeline_step(
-            LAYOUT, dataclasses.replace(CFG, table_mode="sort2"),
+            LAYOUT, dataclasses.replace(CFG, table_mode="bogus"),
             device="cpu")
     with pytest.raises(ValueError, match="unknown matcher"):
         tsharded.make_pipeline_step(

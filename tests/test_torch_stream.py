@@ -166,20 +166,38 @@ def test_stream_handover_from_jax():
 @pytest.mark.parametrize("mode", ["auto", "topk", "pallas", "sort",
                                   "sort2", "bogus"])
 def test_stream_table_modes(mode):
-    """auto, topk, pallas and sort select the topk tables the port
-    builds; sort2 (its own chunk-quota overflow flag) and unknown modes
-    raise instead of running as topk."""
+    """auto, topk, pallas and sort select the topk tables; sort2 builds
+    its own, whose chunk-quota flag fires on the noise frame (region 6 of
+    frame 6): every output and the carried tables equal JAX's sort2 step
+    batch by batch.  An unknown mode raises instead of running as
+    topk."""
     cfg = dataclasses.replace(STREAM_CFG, table_mode=mode)
     build = functools.partial(tsharded.make_streaming_step, LAYOUT, cfg,
                               atlas_pad=PAD, device="cpu")
-    if mode in tsharded.TOPK_TABLE_MODES:
-        init, step = build()
-        offsets = step(to_torch(_break_frames()[:BATCH]), init())[0]
-        assert offsets.shape == (BATCH, 2)
-    else:
-        err = NotImplementedError if mode == "sort2" else ValueError
-        with pytest.raises(err, match=mode):
+    if mode == "bogus":
+        with pytest.raises(ValueError, match=mode):
             build()
+        return
+    init, step = build()
+    frames = _break_frames()[:8]
+    state = init()
+    if mode != "sort2":
+        offsets = step(to_torch(frames[:BATCH]), state)[0]
+        assert offsets.shape == (BATCH, 2)
+        return
+    j_init, j_step = jsharded.make_streaming_step(
+        jax_twin(LAYOUT), jax_twin(cfg), atlas_pad=PAD, use_pallas=False)
+    j_step, j_state = jax.jit(j_step), j_init()
+    for i in range(0, len(frames), BATCH):
+        batch = frames[i:i + BATCH]
+        j_out = j_step(jnp.asarray(batch), j_state)
+        t_out = step(to_torch(batch), state)
+        _assert_step_equal(t_out, j_out)
+        assert_tables_equal(t_out[-1].carry, j_out[-1].carry, full=True,
+                            msg="sort2 carry")
+        j_state, state = j_out[-1], t_out[-1]
+        if i:
+            assert bool(t_out[2].table[6 - i])
 
 
 def _port_modules() -> list:
@@ -233,6 +251,15 @@ def test_port_modules_include_the_multi_device_slice():
             "remap_tpu_torch.parallel.fragments",
             "remap_tpu_torch.parallel.sharded",
             "remap_tpu_torch.utils.profiling"} <= names
+
+
+def test_port_modules_include_the_spec_and_motion():
+    """The guards below cover the NumPy spec's copies and the motion
+    detector too."""
+    names = set(_port_modules())
+    assert {f"remap_tpu_torch.spec.{m}" for m in (
+        "aws", "cte", "fde", "fdf", "fgm", "fgs", "frc", "kpe", "kpm",
+        "pipeline")} | {"remap_tpu_torch.ops.motion"} <= names
 
 
 def test_port_imports_no_jax():

@@ -11,7 +11,8 @@ from remap_tpu_torch.ops import tables as ttab
 from remap_tpu_torch.ops.kernels import tables as ktab
 
 from torch_parity import (  # noqa: F401 (fixtures)
-    CFG, LAYOUT, assert_tables_equal, interpret_pallas, jax_twin, to_torch,
+    CFG, LAYOUT, assert_tables_equal, interpret_pallas, jax_twin, to_numpy,
+    to_torch,
 )
 
 DENSITIES = [0.05, 0.35, 0.95]   # 0.95 overflows every region
@@ -118,6 +119,60 @@ def test_tables_plain_matches_jax_topk_at_edges(case):
     else:
         x_lo, x_hi, y_lo, y_hi = ttab.region_spans(layout)[0]
         assert y_hi - y_lo == 1 and bool(got.overflow.all())
+
+
+@pytest.mark.parametrize("density,capacity", [
+    (0.05, 512), (0.35, 512), (0.35, 4096), (0.95, 64)],
+    ids=["sparse", "chunk_overflow", "chunk_overflow_small_region",
+         "capacity_overflow"])
+def test_tables_sort2_matches_jax(density, capacity):
+    """The port's "sort2" tables equal JAX's ``build_tables(mode="sort2")``
+    in every row: below the chunk quota (no flag), where a 512-px chunk
+    holds more than SORT2_QUOTA keypoints (the chunk-quota flag, and rows
+    that differ from the topk tables), with a table larger than a region
+    (the level-2 keys padded up to it) and where the count passes the
+    capacity."""
+    rng = np.random.default_rng(17)
+    weight, codes = _planes(rng, 3, 64, 96, density)
+    ref = jtab.build_tables(jnp.asarray(weight), jnp.asarray(codes),
+                            jax_twin(LAYOUT), capacity, mode="sort2")
+    got = ttab.build_tables(to_torch(weight), to_torch(codes), LAYOUT,
+                            capacity, mode="sort2")
+    assert_tables_equal(got, ref, full=True, msg=f"d={density}")
+    overflow = to_numpy(got.overflow)
+    assert overflow.any() == (density > 0.3)
+    topk = ttab.build_tables(to_torch(weight), to_torch(codes), LAYOUT,
+                             capacity)
+    same = ~overflow
+    for a, b in zip(got, topk):
+        np.testing.assert_array_equal(to_numpy(a)[same], to_numpy(b)[same])
+
+
+def test_tables_sort2_flags_the_noise_chunk():
+    """The streaming step's sort2 case (iid 16-colour noise, 96x64,
+    capacity 512) through extraction: region 6's flag is set in both
+    packages by its chunk quota alone, since its count fits the table."""
+    from remap_tpu.ops import kpe as jkpe
+    from remap_tpu_torch.ops import kpe as tkpe
+
+    rng = np.random.default_rng(32)
+    frame = rng.integers(0, 16, (1, 64, 96), dtype=np.uint8)
+    jd = jkpe.extract_dense(jnp.asarray(frame), jax_twin(LAYOUT))
+    td = tkpe.extract_dense(to_torch(frame), LAYOUT)
+    ref = jtab.build_tables(jd.weight, jd.codes, jax_twin(LAYOUT), 512,
+                            mode="sort2")
+    got = ttab.build_tables(td.weight, td.codes, LAYOUT, 512, mode="sort2")
+    assert_tables_equal(got, ref, full=True)
+    assert bool(got.overflow[0, 6])
+    assert int(got.wcounts[0, 6, 1:].sum()) <= 512
+
+
+def test_tables_unknown_mode_raises():
+    rng = np.random.default_rng(18)
+    weight, codes = _planes(rng, 1, 64, 96, 0.1)
+    with pytest.raises(ValueError, match="bogus"):
+        ttab.build_tables(to_torch(weight), to_torch(codes), LAYOUT, 512,
+                          mode="bogus")
 
 
 def test_tables_wrapper_rejects_cpu_tensors():
