@@ -1,0 +1,8 @@
+"""idle_share.map: percent of one profiled build in which the card ran
+no kernel, copy or set."""
+
+from port_bench.readers import idle_share
+
+
+def read(obs):
+    return idle_share(obs)
