@@ -1111,7 +1111,13 @@ def recorded_ladder(dev, rungs: list):
                 rec["n"] += 1
                 yield frame
 
-        out = timed(rec, real[0], counted(), layout, cfg, store, device)
+        if isinstance(frames, collect.StoreReplay):
+            # device batches: handed on as they are, counted by length
+            rec["n"] = len(frames)
+            source = frames
+        else:
+            source = counted()
+        out = timed(rec, real[0], source, layout, cfg, store, device)
         rec["flags"] = tuple(int(f.sum()) for f in out[2:5])
         rec["kp_need"] = out[5]
         if len(rungs) == 1:
@@ -1513,6 +1519,21 @@ def collect_phase(dev, counters: dict, smi: str):
         f"overflow_frames 0, {len(res.fragments)} fragments; launches "
         f"{launches}")
     log(f"collect ladder: {describe(rungs)}")
+    # the same ladder from a store with no device mirror: the replay
+    # uploads the host's packed rows
+    host_rungs: list = []
+    with recorded_ladder(dev, host_rungs):
+        host_res = collect.collect(
+            cropped, dataclasses.replace(cfg, frame_store="host"), device=dev)
+    replays = [r for r in host_rungs[1:] if r["kind"] == "pass"]
+    if res.store.mirrored != n or host_res.store.mirrored != 0 or not replays:
+        raise AssertionError(
+            f"mirrored {res.store.mirrored} and {host_res.store.mirrored} "
+            f"frames, {len(replays)} replays from the host store")
+    same_collect(res, host_res, "collect from a host store against the mirror")
+    log(f"collect from a host store (frame_store 'host'): offsets, matched, "
+        f"overflow_frames and canvases equal the mirror's; "
+        f"{describe(host_rungs)}")
     log(f"collect figures on {smi}: window {t['read']} frames read in "
         f"{t['window_s'] * 1e3:.1f} ms ({t['read'] / t['window_s']:.1f} "
         f"frames/s), {launches['cc_labels']} heatmap states labelled (one "

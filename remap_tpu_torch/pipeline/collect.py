@@ -20,6 +20,9 @@ Two passes, as in the JAX package:
 a pass whose tables overflowed, whose join truncated or whose vote radius
 could matter re-matches the flagged pairs (or replays the clip when most
 are flagged) under escalated limits until every declaration is exact.
+A replay reads its batches back from the store as packed rows
+(:class:`StoreReplay`): from the device mirror when it holds them, else
+uploaded from the host rows.
 Under the correlation families (``cfg.matcher`` "xcorr" / "pyramid",
 ``models``) the match pass matches the frames themselves, carrying the
 previous batch's last frame, and raises no escalation flag; its K1
@@ -153,6 +156,33 @@ def split_step_scalars(scalars: np.ndarray):
     )
 
 
+class StoreReplay:
+    """A replay's frames, read back from the store the first pass filled:
+    each batch is the stored packed rows on the device, gathered from the
+    store's frame mirror when it holds them and uploaded from the host
+    rows otherwise, so nothing is unpacked or packed again.
+    :func:`match_pass` takes it in place of host frames."""
+
+    def __init__(self, store: FrameStore):
+        self.store = store
+
+    def __len__(self) -> int:
+        return len(self.store)
+
+    def batch(self, start: int, b: int) -> Tuple[torch.Tensor, int]:
+        """The packed frames from ``start``, padded to ``b`` rows by
+        repeating the last (as host batches pad), and how many are
+        real."""
+        n_real = min(b, len(self) - start)
+        numbers = (list(range(start, start + n_real))
+                   + [start + n_real - 1] * (b - n_real))
+        if self.store.mirrored >= start + n_real:
+            profiling.count("collect.replay_mirror_frames", b)
+            return self.store.device_packed_batch(numbers), n_real
+        with profiling.span("collect.host_pack"):
+            return self.store.device_packed_batch(numbers), n_real
+
+
 def _empty_carry(layout: GridLayout, capacity: int, device):
     """The carry before the first frame: empty tables and a zero frame
     (frame 0's declaration is forced to no-match whatever they give)."""
@@ -171,6 +201,9 @@ def match_pass(
            int]:
     """Pass 1 on ``device`` (CUDA unless the caller asks for the CPU):
     per-frame match offsets and flags, filling ``store`` when given.
+    ``frames`` is an iterable of host frames, a feed with
+    ``read_packed_batch`` or a :class:`StoreReplay` (a replay, with no
+    ``store`` to fill).
 
     Returns (offsets, matched, table_flags, join_flags, range_flags,
     kp_need): the three per-frame escalation signals kept apart (table
@@ -214,13 +247,15 @@ def match_pass(
                                        else None),
             )
 
-    def dispatch(number, n_real, packed, width) -> None:
+    def dispatch(number, n_real, packed, width, packed_dev=None) -> None:
         """Run the step on one packed batch: frames cross packed (2
         px/byte) and unpack on the device; the device copy is donated to
         the store's mirror, so the blit and foreground passes never upload
-        them again."""
+        them again.  A batch already on the device (``packed_dev``)
+        crosses nothing."""
         nonlocal carry
-        packed_dev = upload(packed, dev)
+        if packed_dev is None:
+            packed_dev = upload(packed, dev)
         median, scalars, carry = step(
             unpack_nibbles_device(packed_dev, width), carry)
         fetched = (HostCopy(scalars, median) if cfg.store_medians
@@ -231,8 +266,9 @@ def match_pass(
         if len(pending) >= depth:
             drain(pending.popleft())
 
+    replay = frames if isinstance(frames, StoreReplay) else None
     feed = frames if hasattr(frames, "read_packed_batch") else None
-    it = None if feed is not None else iter(frames)
+    it = None if feed is not None or replay is not None else iter(frames)
     # the feed reads batch n+1 on a worker thread (the native reader, off
     # the GIL) while the device computes batch n
     pool = ThreadPoolExecutor(max_workers=1) if feed is not None else None
@@ -240,7 +276,14 @@ def match_pass(
     number = 0
     try:
         while True:
-            if feed is not None:
+            packed_dev = None
+            if replay is not None:
+                # the stored packed rows, already on the device
+                if number >= len(replay):
+                    break
+                packed_dev, n_real = replay.batch(number, b)
+                packed, width = None, replay.store.width
+            elif feed is not None:
                 # packed by the native reader: nothing packs or unpacks on
                 # the host
                 with profiling.span("collect.feed_wait"):
@@ -264,7 +307,7 @@ def match_pass(
                     stacked = np.stack(batch + [batch[-1]] * (b - n_real))
                     packed = pack_nibbles_batch(stacked)
                 width = stacked.shape[-1]
-            dispatch(number, n_real, packed, width)
+            dispatch(number, n_real, packed, width, packed_dev)
             number += n_real
             if n_real < b:
                 break
@@ -558,13 +601,12 @@ def collect(
         if len(pairs) > n // 2:
             # majority flagged: a full replay extracts each frame once
             # where pair repair extracts both endpoints per pair
-            replay = (store.image(i) for i in range(len(store)))
             with profiling.span("collect.pass", device=dev, rung=rung,
                                 capacity=ecfg.region_capacity,
                                 multiplicity=ecfg.join_multiplicity,
                                 replay=True):
                 offsets, matched, tabf, joinf, rangef, kp_need = match_pass(
-                    replay, layout, ecfg, None, dev)
+                    StoreReplay(store), layout, ecfg, None, dev)
                 # K1 ran on every batch, the last one padded
                 profiling.count("collect.rematched_frames", -(-n // b) * b)
             ptab, pjoin, prange = _pair_flags(tabf, joinf, rangef)

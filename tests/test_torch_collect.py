@@ -15,8 +15,10 @@ from remap_tpu.utils import testing
 from remap_tpu_torch import convert
 from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.pipeline import collect as tcollect
+from remap_tpu_torch.pipeline import state as tstate
 from remap_tpu_torch.pipeline import stream as tstream
 from remap_tpu_torch.pipeline.state import Fragment
+from remap_tpu_torch.utils import profiling
 
 from torch_parity import jax_twin
 
@@ -330,3 +332,109 @@ def test_collect_entry_points_need_cuda(entry):
             tcollect.collect(_break_frames()[:2], CFG)
         else:
             tstream.StreamingStitcher(CFG)
+
+
+@pytest.fixture()
+def recorded(monkeypatch):
+    """Collect's spans and counters under one ``build`` root, in a store
+    of their own."""
+    rec = profiling.Recorder()
+    monkeypatch.setattr(profiling, "_RECORDER", rec)
+
+    def run(frames, cfg):
+        with profiling.span("build"):
+            res = tcollect.collect(frames, cfg, device="cpu")
+        return res, rec.records("build")[-1]
+
+    return run
+
+
+def _replay_clip(n_frames, width):
+    return testing.simple_clip(n_frames=n_frames, frame_hw=(64, width),
+                               world_hw=(160, 224), seed=61).frames
+
+
+def _replays(record):
+    return [s for s in record.spans
+            if s.name == "collect.pass" and s.attrs["rung"] >= 1]
+
+
+#: capacity 16 overflows every frame's tables, so the ladder replays all
+REPLAY_CFG = dataclasses.replace(CFG, region_capacity=16)
+
+
+@pytest.mark.parametrize("n_frames,width", [(16, 96), (13, 95)])
+def test_replay_reads_the_device_mirror(n_frames, width, recorded):
+    """A store whose mirror holds every frame ("hbm", on the CPU here)
+    feeds the full replay from the mirror: no host pack under the
+    replay, every batch counted, padding included; results equal the
+    host path's ("host") and the JAX package's, whole batches or a short
+    last one at an odd width."""
+    frames = _replay_clip(n_frames, width)
+    got = {}
+    for store in ("hbm", "host"):
+        cfg = dataclasses.replace(REPLAY_CFG, screen_width=width,
+                                  frame_store=store)
+        res, record = recorded(frames, cfg)
+        replays = _replays(record)
+        assert replays and all(s.attrs["replay"] for s in replays)
+        by_id = {s.id: s for s in record.spans}
+        packs = [s for s in record.spans if s.name == "collect.host_pack"
+                 and by_id[s.parent].attrs["rung"] >= 1]
+        padded = -(-n_frames // cfg.frame_batch) * cfg.frame_batch
+        mirror_frames = record.counters.get("collect.replay_mirror_frames",
+                                            0)
+        if store == "hbm":
+            assert res.store.mirrored == n_frames
+            assert not packs
+            for s in replays:
+                assert s.counts["collect.replay_mirror_frames"] == padded
+            assert mirror_frames == padded * len(replays)
+        else:
+            assert packs and mirror_frames == 0
+        assert record.counters["collect.rematched_frames"] == (
+            padded * len(replays))
+        got[store] = convert.collect_result_to_numpy(res)
+    want = convert.collect_result_to_numpy(jcollect.collect(
+        frames, jax_twin(dataclasses.replace(REPLAY_CFG,
+                                             screen_width=width))))
+    _assert_host_equal(got["hbm"], got["host"])
+    _assert_host_equal(got["host"], want)
+
+
+@pytest.mark.parametrize("dropped_by", ["gap", "budget"])
+def test_replay_without_a_mirror_packs_on_the_host(dropped_by, recorded,
+                                                   monkeypatch):
+    """A mirror dropped during the first pass (a donation that does not
+    continue from frame 0, or a budget that holds one batch) leaves the
+    replay the host's packed rows, uploaded under ``collect.host_pack``,
+    with the same results as a whole mirror."""
+    frames = _replay_clip(13, 95)
+    cfg = dataclasses.replace(REPLAY_CFG, screen_width=95, frame_store="hbm")
+    whole, _ = recorded(frames, cfg)
+    if dropped_by == "gap":
+        real_put = tstate.FrameStore.put_packed_batch
+        calls = []
+
+        def put(self, numbers, packed, medians=None, device_packed=None,
+                device_packed_medians=None):
+            # the first batch donates no device rows, so the next
+            # donation does not continue from frame 0 and the mirror drops
+            calls.append(numbers)
+            return real_put(self, numbers, packed, medians,
+                            None if len(calls) == 1 else device_packed,
+                            device_packed_medians)
+
+        monkeypatch.setattr(tstate.FrameStore, "put_packed_batch", put)
+    else:
+        per_frame = 64 * -(-95 // 2)
+        monkeypatch.setattr(tstate.FrameStore, "HBM_STORE_BUDGET",
+                            per_frame * cfg.frame_batch)
+    res, record = recorded(frames, cfg)
+    assert not res.store.mirror_enabled and res.store.mirrored == 0
+    assert record.counters.get("collect.replay_mirror_frames", 0) == 0
+    by_id = {s.id: s for s in record.spans}
+    assert any(s.name == "collect.host_pack"
+               and by_id[s.parent].attrs["rung"] >= 1 for s in record.spans)
+    _assert_host_equal(convert.collect_result_to_numpy(res),
+                       convert.collect_result_to_numpy(whole))
