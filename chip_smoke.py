@@ -141,7 +141,10 @@ Phases, each of which raises on failure (non-zero exit):
    beside phase 10's.  (d) BASELINE config 5: builder.build_from_frames
    under VGA with matcher "pyramid" on a 512-frame 640x480 session with
    a noise frame, with (c)'s gates through match_canvases_pyramid, and a
-   16-frame cut byte-equal on the CPU; every stage's ms and peak.
+   16-frame cut byte-equal on the CPU; every stage's ms and peak.  A
+   one-shot gate: the timed VGA pyramid build is the benchmark's
+   ``vga_pyramid_break`` cell (``port_bench/``), 2048-frame sessions
+   through the CLI's raw-dump feed.
 
 12. multi-device (``multi_device_phase``): parallel.sharded.
    make_sharded_step on meshes that repeat the one card: BASELINE config

@@ -5,7 +5,10 @@ frames (port of remap_tpu/models/pyramid.py; BASELINE.json config 5,
 The coarse level correlates frames decimated by stride subsampling
 (palette codes cannot average) over a wide radius; the fine level rolls
 each current frame by its own coarse estimate and rescores a small
-window by direct comparison.
+window by direct comparison.  Each level is a span (``pyramid.coarse``,
+``pyramid.fine``) with CUDA events on the frames' device, and each call
+counts its pairs (``pyramid.pairs``) and the fine level's shifted
+compares (``pyramid.fine_shifts``, pairs x (2 fine_radius + 1)^2).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from remap_tpu_torch.ops import correlate
+from remap_tpu_torch.utils import profiling
 
 
 def shift_frames(frames: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
@@ -37,14 +41,20 @@ def match_pyramid(prev: torch.Tensor, curr: torch.Tensor, factor: int = 4,
     offset's decimated value on coherent content, plus one for rounding."""
     if fine_radius is None:
         fine_radius = factor + 1
-    coarse = correlate.match_xcorr(
-        prev[:, ::factor, ::factor].contiguous(),
-        curr[:, ::factor, ::factor].contiguous(),
-        radius=coarse_radius, min_cover=0.15)
-    base = coarse.offset * factor
-    fine = correlate.match_xcorr(prev, shift_frames(curr, base),
-                                 radius=fine_radius, min_cover=0.15,
-                                 method="direct")
+    dev = prev.device
+    with profiling.span("pyramid.coarse", device=dev):
+        coarse = correlate.match_xcorr(
+            prev[:, ::factor, ::factor].contiguous(),
+            curr[:, ::factor, ::factor].contiguous(),
+            radius=coarse_radius, min_cover=0.15)
+    with profiling.span("pyramid.fine", device=dev):
+        base = coarse.offset * factor
+        fine = correlate.match_xcorr(prev, shift_frames(curr, base),
+                                     radius=fine_radius, min_cover=0.15,
+                                     method="direct")
+    pairs = prev.shape[0]
+    profiling.count("pyramid.pairs", pairs)
+    profiling.count("pyramid.fine_shifts", pairs * (2 * fine_radius + 1) ** 2)
     return base + fine.offset, coarse.ok & fine.ok
 
 
