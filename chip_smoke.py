@@ -123,7 +123,9 @@ Phases, each of which raises on failure (non-zero exit):
    at radius 48 (and the rounded windows; the FFT windows equal the
    direct counts on 2 pairs), match_pyramid at VGA (64 pairs, steps up
    to +-24 px, factor 4, coarse radius 32, fine radius 5; and its coarse
-   windows), match_canvases and match_canvases_pyramid on that collect's
+   windows), the fine level's count kernel (csrc/fine.cu) at 128 cropped
+   VGA pairs against its plain version on the card, exact and timed
+   beside it, match_canvases and match_canvases_pyramid on that collect's
    two world fragments (offset, count, overlap, ok; the offset the frame
    records give); each timed with CUDA events, with its peak memory.
    (b) parallel.sharded.make_pipeline_step on BASELINE config 3 (8 clips
@@ -132,16 +134,18 @@ Phases, each of which raises on failure (non-zero exit):
    the camera's deltas, every pair after frame 0 matched, every covered
    atlas pixel one colour, the first 2 clips equal on the CPU, grid_vote
    launching K1, K2 and K3 once a step and the correlation families K3
-   alone; frames/s.  (c) cli.main --matcher xcorr on phase 10's 2048 raw
-   files at PipelineConfig()'s flags: offsets the camera's, unmatched
-   only at 0 and around the noise frame, splice joining the world
+   alone, pyramid the fine-level kernel once a step besides; frames/s.
+   (c) cli.main --matcher xcorr on phase 10's 2048 raw files at
+   PipelineConfig()'s flags: offsets the camera's, unmatched only at 0
+   and around the noise frame, splice joining the world
    fragments through match_canvases (one acceptance) and leaving the
    noise frame alone, 2 maps, the world map's interior >= 99% the world;
    the 64-frame cut's maps byte-equal with --cpu; its --perf stages
    beside phase 10's.  (d) BASELINE config 5: builder.build_from_frames
    under VGA with matcher "pyramid" on a 512-frame 640x480 session with
-   a noise frame, with (c)'s gates through match_canvases_pyramid, and a
-   16-frame cut byte-equal on the CPU; every stage's ms and peak.  A
+   a noise frame, with (c)'s gates through match_canvases_pyramid, the
+   fine-level kernel launched once a batch, and a 16-frame cut
+   byte-equal on the CPU; every stage's ms and peak.  A
    one-shot gate: the timed VGA pyramid build is the benchmark's
    ``vga_pyramid_break`` cell (``port_bench/``), 2048-frame sessions
    through the CLI's raw-dump feed.
@@ -153,9 +157,9 @@ Phases, each of which raises on failure (non-zero exit):
    grid_vote and pyramid at (2, 2) and (2, 4); each equal in every
    output to make_pipeline_step on the card, offsets the camera's, K1
    and K3 launched once a shard and K2 once a data row (K3 alone under
-   pyramid), a cut equal on a CPU mesh of the same shape, its ms (on
-   clips placed on the mesh) beside the unsharded step's; K1 on a band
-   plus its halo rows and K3 into a band of atlas rows with its RowClip
+   pyramid, with the fine-level kernel once a data row), a cut equal on
+   a CPU mesh of the same shape, its ms (on clips placed on the mesh)
+   beside the unsharded step's; K1 on a band plus its halo rows and K3 into a band of atlas rows with its RowClip
    (every frame cut by the band's edges) against their plain versions at
    VGA space 2 and 4, K3's bound counting only the frame rows inside the
    band; the map cell's build with splice's first extraction, the
@@ -214,7 +218,8 @@ xcorr collect path's (extract_medians_xcorr, blit_xcorr) the launches
 of collect() under xcorr, and the multi-device phase's
 (extract_band_vga_s2/s4: K1 on a band of VGA frame rows plus its halo;
 blit_band_vga_s2/s4: K3 into a band of atlas rows with a RowClip) one
-VGA grid_vote sharded step's at that space, and cc_labels_motion (K4a on
+VGA grid_vote sharded step's at that space, fine counts (the pyramid's
+fine level) phase 11 (d)'s VGA map build's, and cc_labels_motion (K4a on
 one [1, 312, 388] frame) phase 13's motion detects.  Launches count wrapper calls: a K2 call
 launches two kernels, a count and a scan, and its time covers both.  The
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the script
@@ -258,6 +263,8 @@ SPECK_REGION = (10, 276, 10, 376)   # package's wear differential
 #: packages register a stretch of the worn frames 3 px off the camera
 WORN_AGREEMENT = 0.9286
 PYRAMID_PAIRS = 64         # matcher phase: VGA frame pairs for match_pyramid
+FINE_PAIRS = 128           # and cropped VGA pairs for the fine-level counts
+VGA_CROPPED = (440, 624)   # a VGA frame less a 32-row HUD and 8-px border
 MULTI_CLIPS = 8            # multi-clip step: BASELINE config 3's 8 clips
 MULTI_T = 64               # of 64 NES frames each
 VGA_SESSION = 512          # pyramid map build: frames of the VGA session
@@ -2618,12 +2625,14 @@ def multiclip_phase(dev, smi: str, counters: dict):
     after: offsets equal the camera's deltas and every pair after frame 0
     matches, every covered atlas pixel holds one colour, the first 2
     clips equal on the CPU, and grid_vote launches K1, K2 and K3 once a
-    step, the correlation families K3 alone.  Returns the grid_vote
-    step's kernel entries with their launches."""
+    step, the correlation families K3 alone, and pyramid the fine-level
+    kernel once a step besides.  Returns the grid_vote step's kernel
+    entries with their launches."""
     import torch
 
     from remap_tpu_torch.config import PipelineConfig
     from remap_tpu_torch.core.regions import make_layout
+    from remap_tpu_torch.ops.kernels import correlate as kcorrelate
     from remap_tpu_torch.parallel import sharded
 
     clips_np, paths = multiclip_clips()
@@ -2639,12 +2648,14 @@ def multiclip_phase(dev, smi: str, counters: dict):
         step = sharded.make_pipeline_step(layout, cfg, atlas_pad=64,
                                           device=dev)
         step(images)   # warm-up
-        for k in counters.values():
+        counted = dict(counters, fine=kcorrelate.fine_counts_cuda)
+        for k in counted.values():
             k.launches = 0
         res, _, peak = timed(dev, lambda: step(images))
-        launches = {name: k.launches for name, k in counters.items()}
+        launches = {name: k.launches for name, k in counted.items()}
         want = ({"extract": 1, "tables": 1, "blit": 1} if family ==
                 "grid_vote" else {"extract": 0, "tables": 0, "blit": 1})
+        want["fine"] = int(family == "pyramid")
         if {k: launches[k] for k in want} != want:
             raise AssertionError(f"multi-clip {family}: launches {launches}")
         matched = res.matched.cpu().numpy()
@@ -2874,14 +2885,16 @@ def vga_session(n: int = VGA_SESSION, seed: int = 21):
     return frames, path, world
 
 
-def pyramid_map_phase(dev, smi: str, counters: dict) -> None:
+def pyramid_map_phase(dev, smi: str, counters: dict) -> int:
     """Phase 11 (d): BASELINE config 5's map build: builder.build_from_frames
     under VGA with matcher "pyramid" on a VGA_SESSION-frame 640x480
     session with a noise frame, counts zeroed just before and read just
     after, with (c)'s gates (splice through match_canvases_pyramid); a
     VGA_SHORT-frame cut around the noise frame byte-equal on the card and
-    the CPU."""
+    the CPU.  Returns the build's launches of the fine-level kernel (one
+    a batch)."""
     from remap_tpu_torch.config import VGA
+    from remap_tpu_torch.ops.kernels import correlate as kcorrelate
 
     cfg = dataclasses.replace(VGA, matcher="pyramid")
     frames, path, world = vga_session()
@@ -2894,7 +2907,7 @@ def pyramid_map_phase(dev, smi: str, counters: dict) -> None:
     cpu_s = time.perf_counter() - t0
     same_build((card, card_spliced), (cpu, cpu_spliced),
                f"the {VGA_SHORT}-frame VGA cut, card vs CPU")
-    for k in counters.values():
+    for k in list(counters.values()) + [kcorrelate.fine_counts_cuda]:
         k.launches = 0
     with CanvasCalls("match_canvases_pyramid") as calls:
         t0 = time.perf_counter()
@@ -2903,6 +2916,10 @@ def pyramid_map_phase(dev, smi: str, counters: dict) -> None:
     launches = {name: k.launches for name, k in counters.items()}
     agree, compared = check_map(res, path, world, VGA_NOISE_AT, len(frames),
                                 "pyramid map")
+    fine = kcorrelate.fine_counts_cuda.launches
+    if fine != -(-len(frames) // cfg.frame_batch):
+        raise AssertionError(f"pyramid map: the fine-level kernel launched "
+                             f"{fine} times, not once a batch")
     if calls.accepted != 1:
         raise AssertionError(f"pyramid map: {calls.calls} canvas matches, "
                              f"{calls.accepted} accepted")
@@ -2914,29 +2931,91 @@ def pyramid_map_phase(dev, smi: str, counters: dict) -> None:
         f"calls, {calls.accepted} accepted; 2 maps "
         f"{[m.shape for m in res.maps]}, the world map's interior equals the "
         f"world at {agree} of {compared} px ({agree / compared:.4%}); wall "
-        f"{wall_s:.3f} s ({n / wall_s:.1f} frames/s); launches {launches}; "
+        f"{wall_s:.3f} s ({n / wall_s:.1f} frames/s); launches {launches}, "
+        f"the fine-level kernel {fine}; "
         f"the {VGA_SHORT}-frame cut's maps byte-equal on the CPU "
         f"({cpu_s:.1f} s); on {smi}")
     log("pyramid map stages: " + ", ".join(
         f"{s['stage']} {s['ms']:.1f} ms (peak {mib(s['peak_mb'])})"
         for s in stages) + f"; on {smi}")
+    return fine
+
+
+def fine_counts_kernel(dev, smi: str) -> dict:
+    """Phase 11 (a): the pyramid's fine-level count kernel at FINE_PAIRS
+    cropped VGA pairs (+-6 px camera steps, the coarse level's own offsets
+    times 4, fine radius 5) against its plain version on the card (the
+    direct counts of ``curr`` rolled by ``shift_frames``, which the fine
+    level ran before the kernel), exact, one launch a call; both timed.
+    Returns its kernel entry, without its launches (the map build's)."""
+    import torch
+
+    from remap_tpu_torch.ops import correlate
+    from remap_tpu_torch.ops.kernels import correlate as kcorrelate
+    from remap_tpu_torch.utils import clips
+
+    h, w = VGA_CROPPED
+    radius = 5
+    rng = np.random.default_rng(37)
+    world = clips.make_world(h + 400, w + 400, rng)
+    path = clips.make_camera_path(FINE_PAIRS + 1, world.shape, (h, w), rng,
+                                  max_step=6)
+    frames = torch.as_tensor(np.stack(clips.render_clip(world, path,
+                                                        (h, w)).frames),
+                             device=dev)
+    prev, curr = frames[:-1], frames[1:]
+    base = correlate.match_xcorr(prev[:, ::4, ::4].contiguous(),
+                                 curr[:, ::4, ::4].contiguous(), radius=32,
+                                 min_cover=0.15).offset * 4
+
+    def plain():
+        return correlate.correlation_scores_direct(
+            prev, correlate.shift_frames(curr, base), radius)
+
+    before = kcorrelate.fine_counts_cuda.launches
+    got = correlate.fine_counts(prev, curr, base, radius)
+    if kcorrelate.fine_counts_cuda.launches != before + 1:
+        raise AssertionError("fine_counts did not launch its kernel once")
+    err = require_equal((got.int(),), (plain().int(),), "fine counts")
+    ms = time_ms(lambda: kcorrelate.fine_counts_cuda(prev, curr, base,
+                                                     radius), 20)
+    plain_ms = time_ms(plain, 3)
+    counts = kcorrelate.fine_counts_cuda(prev, curr, base, radius)
+    bound = bound_ms((prev, curr, base), (counts,))
+    compares = FINE_PAIRS * (2 * radius + 1) ** 2 * h * w
+    log(f"fine counts [{FINE_PAIRS},{h},{w}] radius {radius}, coarse "
+        f"offsets {int(base.abs().max())} px at most: the kernel equals the "
+        f"plain version; {ms:.4f} ms (plain {plain_ms:.4f} ms, byte bound "
+        f"{bound:.4f} ms), {compares:,} compares, "
+        f"{compares / ms / 1e9:.2f} T compares/s; one launch a batch; "
+        f"on {smi}")
+    entry = kernel_entry(
+        "fine counts", "none: the JAX package's fine pass is jnp.roll and "
+        "slices (remap_tpu/ops/correlate.py correlation_scores_direct)",
+        "fine.cu", err, ms, plain_ms, bound)
+    entry.update(compares=compares, compares_per_s=compares / ms * 1e3)
+    return entry
 
 
 def matcher_phase(dev, counters: dict, smi: str, grid_perf: str) -> list:
     """Phase 11, the matcher families: (a) the correlation ops on the card
-    against the CPU, (b) the multi-clip step under the three families,
-    (c) the CLI under --matcher xcorr, (d) the pyramid map build at VGA.
-    Returns the kernel entries of the multi-clip step and of the xcorr
-    collect path, with their launches."""
+    against the CPU and the fine-level count kernel against its plain
+    version, (b) the multi-clip step under the three families, (c) the
+    CLI under --matcher xcorr, (d) the pyramid map build at VGA.  Returns
+    the kernel entries of the multi-clip step, of the xcorr collect path
+    and of the fine-level counts (its launches the pyramid map build's),
+    with their launches."""
     from remap_tpu_torch.config import PipelineConfig
 
     launches, cropped, res = matcher_ops(dev, smi, counters)
     entries = xcorr_collect_kernels(
         dev, cropped, res, dataclasses.replace(PipelineConfig(),
                                                matcher="xcorr"), launches)
+    fine = fine_counts_kernel(dev, smi)
+    entries.append(fine)
     entries += multiclip_phase(dev, smi, counters)
     xcorr_cli_phase(dev, smi, counters, grid_perf)
-    pyramid_map_phase(dev, smi, counters)
+    fine["launches"] = pyramid_map_phase(dev, smi, counters)
     return entries
 
 
@@ -2976,14 +3055,16 @@ def sharded_case(dev, clips_np, deltas, layout, cfg, pad: int, data: int,
     step and read just after: every output equal to make_pipeline_step's
     on ``dev``, offsets the camera's deltas with every pair after frame 0
     matched, launches per step (K1 and K3 once a shard, K2 once a data
-    row under grid_vote; K3 alone under a correlation family), and the
-    first ``data`` clips' first ``cut`` frames equal on a CPU mesh of the
-    same shape.  Its ms on clips placed on the mesh first, as the
+    row under grid_vote; K3 alone under a correlation family; the
+    fine-level kernel once a data row under pyramid), and the first
+    ``data`` clips' first ``cut`` frames equal on a CPU mesh of the same
+    shape.  Its ms on clips placed on the mesh first, as the
     unsharded step's clips wait on its card, every device synchronised.
     Returns (the step's result, its launches, sharded ms, unsharded
     ms)."""
     import torch
 
+    from remap_tpu_torch.ops.kernels import correlate as kcorrelate
     from remap_tpu_torch.parallel import mesh as tmesh
     from remap_tpu_torch.parallel import sharded
 
@@ -2996,13 +3077,15 @@ def sharded_case(dev, clips_np, deltas, layout, cfg, pad: int, data: int,
                                        device=dev)
     step(images)   # warm-up
     want = plain(images)
-    for k in counters.values():
+    counted = dict(counters, fine=kcorrelate.fine_counts_cuda)
+    for k in counted.values():
         k.launches = 0
     res, _, peak = timed(dev, lambda: step(images))
-    launches = {name: k.launches for name, k in counters.items()}
+    launches = {name: k.launches for name, k in counted.items()}
     grid = cfg.matcher == "grid_vote"
     expect = {"extract": data * space if grid else 0,
-              "tables": data if grid else 0, "blit": data * space}
+              "tables": data if grid else 0, "blit": data * space,
+              "fine": data if cfg.matcher == "pyramid" else 0}
     if {k: launches[k] for k in expect} != expect:
         raise AssertionError(f"{what}: launches {launches}, not {expect}")
     got = sharded.assemble(res)

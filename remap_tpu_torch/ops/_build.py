@@ -74,6 +74,8 @@ SIGNATURES = {
     "remap_cc_labels": [_P, _I, _I, _I, _P, _P, _P],
     # labels, changed, B, H, W, slots, stats, stream
     "remap_cc_stats": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # prev, curr, base, B, H, W, radius, counts, stream
+    "remap_fine_counts": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -22,6 +22,11 @@ larger score first and the lower flat index first on ties (``lax.top_k``'s
 order, here a top-k of distinct composite keys), and rescores them by
 direct masked comparison, which is exact.
 
+The pyramid's fine level (:func:`fine_counts`) counts its small window
+directly, with each ``curr`` rolled by its coarse offset: on CUDA tensors
+one hand-written kernel (``csrc/fine.cu``) counts every shift of a batch
+from one read of both frames, with no rolled copy.
+
 All thresholds are float32 as in the JAX package: ``min_cover * h * w``
 is a Python float compared in float32, and the ratio tests multiply by a
 float32 ratio (PyTorch, like JAX's weak typing, casts a Python scalar to
@@ -34,6 +39,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from remap_tpu_torch.device import uses_kernels
+from remap_tpu_torch.ops.kernels import correlate as kcorrelate
 
 #: the one-hot channels (4-bit palette codes)
 CHANNELS = 16
@@ -111,6 +119,34 @@ def correlation_scores_direct(prev: torch.Tensor, curr: torch.Tensor,
     return torch.stack(rows, dim=-2).to(torch.float32)
 
 
+def shift_frames(frames: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """``out[b, y, x] = frames[b, (y - dy_b) mod H, (x - dx_b) mod W]``:
+    each ``[H, W]`` frame rolled by its own ``offsets[b]`` = (dx, dy), as a
+    gather with modular indices (``torch.roll`` has no per-sample
+    shifts)."""
+    b, h, w = frames.shape
+    dev = frames.device
+    off = offsets.to(torch.int64)
+    ys = (torch.arange(h, device=dev)[None] - off[:, 1, None]) % h
+    xs = (torch.arange(w, device=dev)[None] - off[:, 0, None]) % w
+    bi = torch.arange(b, device=dev)[:, None, None]
+    return frames[bi, ys[:, :, None], xs[:, None, :]]
+
+
+def fine_counts(prev: torch.Tensor, curr: torch.Tensor, base: torch.Tensor,
+                radius: int) -> torch.Tensor:
+    """The pyramid's fine level: ``[B, 2R+1, 2R+1]`` float32 direct counts
+    of each ``[B, H, W]`` uint8 pair with ``curr`` rolled by its own
+    ``base[b]`` = (dx, dy) (int32), i.e. ``correlation_scores_direct(prev,
+    shift_frames(curr, base), radius)``, which CPU tensors get.  On CUDA
+    tensors the kernel ``ops.kernels.correlate.fine_counts_cuda`` counts
+    the same integers from one read of both frames, reading ``curr`` at
+    its rolled coordinates."""
+    if uses_kernels(prev):
+        return kcorrelate.fine_counts_cuda(prev, curr, base, radius).float()
+    return correlation_scores_direct(prev, shift_frames(curr, base), radius)
+
+
 def _first_argmax(x: torch.Tensor) -> torch.Tensor:
     """Index of the first maximum along the last axis (int64)."""
     n = x.shape[-1]
@@ -119,22 +155,15 @@ def _first_argmax(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x == top, iota, n).amin(dim=-1)
 
 
-def match_xcorr(prev: torch.Tensor, curr: torch.Tensor, radius: int = 48,
-                min_ratio: float = 1.10, min_cover: float = 0.20,
-                exclude: int = 2, method: str = "fft") -> XCorrResult:
-    """Peak pick + dominance acceptance over the correlation window of
-    each ``[B, H, W]`` uint8 frame pair: the first maximum of the rounded
-    window, accepted where it covers ``min_cover`` of the frame and beats
-    the best score outside its ``exclude`` neighbourhood by ``min_ratio``."""
-    b, h, w = prev.shape
-    if method == "direct":
-        win = correlation_scores_direct(prev, curr, radius)
-    elif method == "fft":
-        win = correlation_scores(prev, curr, radius)
-    else:
-        raise ValueError(f"unknown method {method!r}")
-    n = 2 * radius + 1
-    dev = prev.device
+def pick_peak(win: torch.Tensor, h: int, w: int, min_ratio: float = 1.10,
+              min_cover: float = 0.20, exclude: int = 2) -> XCorrResult:
+    """Peak pick + dominance acceptance over ``[B, 2R+1, 2R+1]`` windows
+    of counts of ``[H, W]`` frame pairs: the first maximum of each window,
+    accepted where it covers ``min_cover`` of the frame and beats the best
+    score outside its ``exclude`` neighbourhood by ``min_ratio``."""
+    b, n = win.shape[0], win.shape[-1]
+    radius = n // 2
+    dev = win.device
     flat = win.reshape(b, -1)
     peak_idx = _first_argmax(flat)
     peak = flat.gather(1, peak_idx[:, None])[:, 0]
@@ -150,6 +179,17 @@ def match_xcorr(prev: torch.Tensor, curr: torch.Tensor, radius: int = 48,
     offset = torch.stack([px - radius, py - radius], dim=-1).to(torch.int32)
     ok = (peak >= min_cover * h * w) & (peak >= runner * min_ratio)
     return XCorrResult(offset=offset, ok=ok, score=peak)
+
+
+def match_xcorr(prev: torch.Tensor, curr: torch.Tensor, radius: int = 48,
+                min_ratio: float = 1.10, min_cover: float = 0.20,
+                exclude: int = 2) -> XCorrResult:
+    """:func:`pick_peak` over the rounded FFT correlation window of each
+    ``[B, H, W]`` uint8 frame pair.  (The JAX package's ``method="direct"``
+    is :func:`pick_peak` over :func:`correlation_scores_direct` here.)"""
+    _, h, w = prev.shape
+    return pick_peak(correlation_scores(prev, curr, radius), h, w, min_ratio,
+                     min_cover, exclude)
 
 
 def _canvas_planes(a_img, a_mask, b_img, b_mask, ny: int, nx: int):

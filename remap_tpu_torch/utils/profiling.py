@@ -139,7 +139,8 @@ _KERNELS = (("extract", "extract_dense_cuda"),
             ("tables", "build_tables_cuda"),
             ("blit", "blit_frames_cuda"),
             ("cc", "label_components_cuda"),
-            ("cc", "label_stats_cuda"))
+            ("cc", "label_stats_cuda"),
+            ("correlate", "fine_counts_cuda"))
 
 
 def _launches() -> Dict[str, int]:

@@ -1,5 +1,6 @@
 """The correlation matchers (remap_tpu_torch.ops.correlate, models) vs the
 JAX package's, exact: the rounded correlation windows (FFT and direct),
+the pyramid's fine-level counts (``fine_counts``),
 ``match_xcorr``'s offsets, flags and peak counts, ``match_pyramid``,
 ``match_canvases`` and its pyramid on tests/test_splice_xcorr.py's
 canvases and on periodic textures where the top-k's tie order decides,
@@ -79,7 +80,9 @@ def test_windows_match_jax_and_direct(world, radius, h, w):
 
 @pytest.mark.parametrize("method", ["fft", "direct"])
 def test_xcorr_recovers_shifts_as_jax(world, method):
-    """tests/test_models.py::test_xcorr_recovers_shifts's frames."""
+    """tests/test_models.py::test_xcorr_recovers_shifts's frames, through
+    ``match_xcorr`` and (for JAX's ``method="direct"``) ``pick_peak`` over
+    the direct counts."""
     cams_prev = [(100, 100), (130, 90), (80, 120)]
     cams_curr = [(103, 98), (140, 100), (80, 120)]
     if method == "direct":
@@ -87,8 +90,12 @@ def test_xcorr_recovers_shifts_as_jax(world, method):
     prev = frames_at(world, cams_prev, 96, 128)
     curr = frames_at(world, cams_curr, 96, 128)
     radius = 16 if method == "fft" else 4
-    got = tcorrelate.match_xcorr(to_torch(prev), to_torch(curr),
-                                 radius=radius, method=method)
+    if method == "fft":
+        got = tcorrelate.match_xcorr(to_torch(prev), to_torch(curr),
+                                     radius=radius)
+    else:
+        got = tcorrelate.pick_peak(tcorrelate.correlation_scores_direct(
+            to_torch(prev), to_torch(curr), radius), 96, 128)
     want = jcorrelate.match_xcorr(jnp.asarray(prev), jnp.asarray(curr),
                                   radius=radius, method=method)
     _assert_xcorr_equal(got, want)
@@ -150,10 +157,60 @@ def test_shift_frames_is_a_per_frame_roll():
     rng = np.random.default_rng(2)
     frames = rng.integers(0, 16, size=(4, 9, 13), dtype=np.uint8)
     offs = np.array([[3, -2], [-14, 20], [0, 0], [12, 9]], np.int32)
-    got = to_numpy(tpyramid.shift_frames(to_torch(frames), to_torch(offs)))
+    got = to_numpy(tcorrelate.shift_frames(to_torch(frames), to_torch(offs)))
     want = np.stack([np.roll(f, (o[1], o[0]), axis=(0, 1))
                      for f, o in zip(frames, offs)])
     np.testing.assert_array_equal(got, want)
+
+
+#: coarse offsets (dx, dy) that wrap both ways, up to +-128
+FINE_BASES = np.array([[128, -128], [-128, 128], [-37, 61], [0, 0]], np.int32)
+
+
+def _fine_frames(world, kind, h, w):
+    """Four ``[h, w]`` frame pairs: world texture with noise, constant
+    frames, or frames blank but for a one-pixel stripe along two borders
+    (where the edge rule alone decides the counts)."""
+    if kind == "texture":
+        return _pairs(world, h, w, [(2, -1), (-5, 4), (0, 0), (7, 7)],
+                      seed=h + w)
+    if kind == "constant":
+        frames = np.full((4, h, w), 9, np.uint8)
+        return frames, frames.copy()
+    frames = np.zeros((4, h, w), np.uint8)
+    frames[:, :, 0] = 3
+    frames[:, -1, :] = 12
+    return frames, frames.copy()
+
+
+@pytest.mark.parametrize("kind", ["texture", "constant", "stripe"])
+@pytest.mark.parametrize("h,w", [(37, 53), (40, 64)])
+@pytest.mark.parametrize("radius", [1, 5, 7])
+def test_fine_counts_match_direct_and_jax(world, radius, h, w, kind):
+    """``fine_counts`` on CPU tensors equals the direct counts of ``curr``
+    rolled by ``shift_frames`` and the JAX package's fine pass (each
+    frame ``jnp.roll``ed by its coarse offset, then ``method="direct"``),
+    at odd and even sizes, with offsets that wrap both ways; constant
+    frames count the overlap, (H - |dy|) (W - |dx|)."""
+    prev, curr = _fine_frames(world, kind, h, w)
+    tp, tc, tb = to_torch(prev), to_torch(curr), to_torch(FINE_BASES)
+    got = tcorrelate.fine_counts(tp, tc, tb, radius)
+    plain = tcorrelate.correlation_scores_direct(
+        tp, tcorrelate.shift_frames(tc, tb), radius)
+    rolled = jnp.stack([jnp.roll(jnp.asarray(c), (int(dy), int(dx)),
+                                 axis=(0, 1))
+                        for c, (dx, dy) in zip(curr, FINE_BASES)])
+    want = np.asarray(jcorrelate.correlation_scores_direct(
+        jnp.asarray(prev), rolled, radius))
+    n = 2 * radius + 1
+    assert got.shape == (4, n, n) and got.dtype == torch.float32
+    np.testing.assert_array_equal(to_numpy(got), to_numpy(plain))
+    np.testing.assert_array_equal(to_numpy(got), want)
+    if kind == "constant":
+        d = np.abs(np.arange(-radius, radius + 1))
+        overlap = (h - d)[:, None] * (w - d)[None, :]
+        np.testing.assert_array_equal(to_numpy(got),
+                                      np.broadcast_to(overlap, (4, n, n)))
 
 
 @pytest.mark.parametrize("case", ["large", "small"])
@@ -307,7 +364,3 @@ def test_get_matcher_matches_jax(world, name):
 def test_get_matcher_rejects_unknown():
     with pytest.raises(ValueError, match="unknown matcher"):
         tmodels.get_matcher("grid_vote", PipelineConfig())
-    with pytest.raises(ValueError, match="unknown method"):
-        tcorrelate.match_xcorr(torch.zeros((1, 8, 8), dtype=torch.uint8),
-                               torch.zeros((1, 8, 8), dtype=torch.uint8),
-                               radius=1, method="gemm")

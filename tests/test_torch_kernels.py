@@ -19,6 +19,7 @@ from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.core.regions import make_layout
 from remap_tpu_torch.utils import clips as testing
 from remap_tpu_torch.ops import cc as tcc
+from remap_tpu_torch.ops import correlate as tcorrelate
 from remap_tpu_torch.ops import fde as tfde
 from remap_tpu_torch.ops import kpe as tkpe
 from remap_tpu_torch.ops import motion as tmotion
@@ -26,6 +27,7 @@ from remap_tpu_torch.ops import _build
 from remap_tpu_torch.ops import tables as ttab
 from remap_tpu_torch.ops.kernels import blit as kblit
 from remap_tpu_torch.ops.kernels import cc as kcc
+from remap_tpu_torch.ops.kernels import correlate as kcorrelate
 from remap_tpu_torch.ops.kernels import extract as kext
 from remap_tpu_torch.ops.kernels import tables as ktab
 from remap_tpu_torch.parallel import sharded as tsharded
@@ -36,6 +38,8 @@ pytestmark = pytest.mark.cuda
 
 NES = (240, 256)
 C64 = (312, 388)
+#: a VGA frame less the benchmark session's 32-row HUD and 8-px border
+VGA_CROPPED = (440, 624)
 
 
 def _random_frames(device, b, h, w, seed=7):
@@ -506,3 +510,60 @@ def test_sort2_tables_cuda_match_cpu(cuda_device):
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
     assert bool(want.overflow.any())
+
+
+def _fine_case(case, device):
+    """(prev, curr, base) of a fine-level count case: world texture at
+    +-6 px camera steps with coarse offsets in [-128, 128] (the first
+    three 128, -128 and 0 each way); ``padded`` repeats its last pair, as
+    collect pads a session's last batch."""
+    b, (h, w) = {"vga128": (128, VGA_CROPPED), "one": (1, VGA_CROPPED),
+                 "odd": (8, (45, 77)), "padded": (16, (61, 96))}[case]
+    rng = np.random.default_rng(23)
+    world = testing.make_world(h + 64, w + 64, rng)
+    cams = rng.integers(6, 58, (b + 1, 2))
+    cams[1:] = np.clip(cams[:-1] + rng.integers(-6, 7, (b, 2)), 0, 64)
+    frames = np.stack([world[y:y + h, x:x + w] for x, y in cams])
+    base = rng.integers(-128, 129, (b, 2)).astype(np.int32)
+    base[:3] = [[128, -128], [-128, 128], [0, 0]][:b]
+    prev, curr = frames[:-1], frames[1:]
+    if case == "padded":
+        prev, curr, base = (np.concatenate([a[:11], np.repeat(a[10:11], 5,
+                                                                axis=0)])
+                            for a in (prev, curr, base))
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                 for a in (prev, curr, base))
+
+
+@pytest.mark.parametrize("case", ["vga128", "one", "odd", "padded"])
+@pytest.mark.parametrize("radius", [1, 5, 7])
+def test_fine_counts_kernel_matches_plain(cuda_device, radius, case):
+    """The fine-level count kernel equals the plain version (the direct
+    counts of ``curr`` rolled by ``shift_frames``) element for element:
+    at the cropped VGA batch of 128 pairs, one pair, odd sizes and a
+    padded batch, radii 1, 5 and 7, offsets at +-128 and 0; one launch a
+    call, and ``fine_counts`` goes through it."""
+    prev, curr, base = _fine_case(case, cuda_device)
+    before = kcorrelate.fine_counts_cuda.launches
+    got = kcorrelate.fine_counts_cuda(prev, curr, base, radius)
+    want = tcorrelate.correlation_scores_direct(
+        prev, tcorrelate.shift_frames(curr, base), radius)
+    torch.cuda.synchronize()
+    assert kcorrelate.fine_counts_cuda.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want.to(torch.int32))
+    entry = tcorrelate.fine_counts(prev, curr, base, radius)
+    assert kcorrelate.fine_counts_cuda.launches == before + 2
+    assert torch.equal(entry, want)
+
+
+def test_fine_counts_kernel_wide_radius(cuda_device):
+    """At radius 40 the halo tile and the 81x81 counts take more than the
+    48 KB of shared memory a block gets by default: the launch asks for
+    it, and the counts still equal the plain version's."""
+    prev, curr, base = _fine_case("odd", cuda_device)
+    got = kcorrelate.fine_counts_cuda(prev, curr, base, 40)
+    want = tcorrelate.correlation_scores_direct(
+        prev, tcorrelate.shift_frames(curr, base), 40)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.to(torch.int32))
