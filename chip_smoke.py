@@ -1242,6 +1242,7 @@ def one_batch_ms(dev, cropped, cfg) -> float:
     scalars' copy), timed alone behind a spin kernel."""
     import torch
 
+    from remap_tpu_torch import models
     from remap_tpu_torch.core.regions import make_layout
     from remap_tpu_torch.pipeline import collect
     from remap_tpu_torch.pipeline.state import (pack_nibbles_batch,
@@ -1251,7 +1252,7 @@ def one_batch_ms(dev, cropped, cfg) -> float:
     layout = make_layout(w, h, cfg.grid_width, cfg.grid_height,
                          cfg.grid_overlap)
     step = collect.make_collect_step(layout, cfg)
-    carry = collect._empty_carry(layout, cfg.region_capacity, dev)
+    carry = models.family(cfg, layout).empty_carry(dev)
     packed = torch.as_tensor(pack_nibbles_batch(cropped[:cfg.frame_batch]),
                              device=dev)
 
@@ -1425,6 +1426,7 @@ def dense_at_top(dev, cropped, path, cfg) -> None:
     offset, its time and peak memory."""
     import torch
 
+    from remap_tpu_torch import models
     from remap_tpu_torch.core.regions import make_layout
     from remap_tpu_torch.ops import kpe, kpm, tables
     from remap_tpu_torch.pipeline import collect
@@ -1435,13 +1437,13 @@ def dense_at_top(dev, cropped, path, cfg) -> None:
     dense = kpe.extract_dense(torch.as_tensor(cropped[:2], device=dev),
                               layout)
     tabs = tables.build_tables(dense.weight, dense.codes, layout, cap)
+    grid_vote = models.GridVote(layout,
+                                dataclasses.replace(cfg, join_multiplicity=0))
     sync(dev)
     reset_peak(dev)
     t0 = time.perf_counter()
-    top = collect._match(
-        tables.RegionTables(*(x[:1] for x in tabs)),
-        tables.RegionTables(*(x[1:] for x in tabs)), layout,
-        dataclasses.replace(cfg, join_multiplicity=0))
+    top = grid_vote.match(tables.RegionTables(*(x[:1] for x in tabs)),
+                          tables.RegionTables(*(x[1:] for x in tabs)))
     sync(dev)
     ms = (time.perf_counter() - t0) * 1e3
     peak = peak_mb(dev)
@@ -2252,7 +2254,7 @@ def cli_phase(dev, counters: dict, smi: str, in_memory_maps,
         h, w = cropped.shape[1:]
         layout = make_layout(w, h, cfg.grid_width, cfg.grid_height,
                              cfg.grid_overlap)
-        store = FrameStore(h, w, device_budget=collect._store_budget(
+        store = FrameStore(h, w, device_budget=collect.store_budget(
             cfg, dev), device=dev)
         sync(dev)
         t0 = time.perf_counter()
@@ -2753,13 +2755,16 @@ def xcorr_collect_kernels(dev, cropped, res, cfg, launches) -> list:
 
 
 class CanvasCalls:
-    """Counts the canvas matcher's calls and acceptances while active
-    (splice looks ``match_canvases`` up at each call)."""
+    """Counts a family's canvas matcher's calls and acceptances while
+    active (splice looks ``models.<family>.match_canvases`` up at each
+    match, through ``models.family``)."""
 
-    def __init__(self, name: str):
-        from remap_tpu_torch.ops import correlate
+    def __init__(self, family: str):
+        import importlib
 
-        self.module, self.name = correlate, name
+        self.module = importlib.import_module(
+            f"remap_tpu_torch.models.{family}")
+        self.name = "match_canvases"
         self.calls = self.accepted = 0
 
     def __enter__(self):
@@ -2821,7 +2826,7 @@ def xcorr_cli_phase(dev, smi: str, counters: dict, grid_perf: str) -> None:
         write_raw(f"{tmp}/session", frames)
         for k in counters.values():
             k.launches = 0
-        with cli_probe(dev) as rec, CanvasCalls("match_canvases") as calls:
+        with cli_probe(dev) as rec, CanvasCalls("xcorr") as calls:
             rc, lines, wall_s = run_cli([f"{tmp}/session", *flags, "--perf",
                                          "--out-prefix", f"{tmp}/out"])
         launches = {name: k.launches for name, k in counters.items()}
@@ -2909,7 +2914,7 @@ def pyramid_map_phase(dev, smi: str, counters: dict) -> int:
                f"the {VGA_SHORT}-frame VGA cut, card vs CPU")
     for k in list(counters.values()) + [kcorrelate.fine_counts_cuda]:
         k.launches = 0
-    with CanvasCalls("match_canvases_pyramid") as calls:
+    with CanvasCalls("pyramid") as calls:
         t0 = time.perf_counter()
         res, _, stages = timed_build(dev, frames, cfg, counters)[:3]
         wall_s = time.perf_counter() - t0

@@ -22,8 +22,8 @@ remap_tpu_torch.cli <frames-dir>``.
   ``ops.atlas`` fragment canvases
 - ``ops.splice``, ``ops.arf``  the cellular fragment matcher, the
   artifact filter (plain tensor code)
-- ``ops.correlate``, ``models``  the correlation matchers on ``torch.fft``
-  and the xcorr and pyramid families built on them
+- ``ops.correlate``, ``models``  the correlation matchers on ``torch.fft``;
+  the three matcher families and the alignment core (``models.family``)
 - ``ops.motion``    contour motion detection (labels by ``csrc/cc.cu``)
 - ``parallel.sharded``  the streaming step and the multi-clip step
 - ``pipeline.window``, ``pipeline.collect``, ``pipeline.stream``,

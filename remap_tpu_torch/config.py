@@ -150,7 +150,7 @@ class PipelineConfig:
     #: the foreground pass never re-crosses the host->device link; "host"
     #: disables the mirrors; "auto" picks by platform ("hbm" on CUDA,
     #: "host" on the CPU: the port's collect, pipeline/collect.py
-    #: ``_store_budget``).
+    #: ``store_budget``).
     frame_store: str = "auto"
     #: Frames per device dispatch in the batched collect path.
     frame_batch: int = 128
@@ -171,9 +171,6 @@ class PipelineConfig:
     @property
     def region_count(self) -> int:
         return self.grid_width * self.grid_height
-
-    def with_screen(self, width: int, height: int) -> "PipelineConfig":
-        return dataclasses.replace(self, screen_width=width, screen_height=height)
 
 
 #: Benchmark-target config: NES-resolution frames (BASELINE.json configs[0]).

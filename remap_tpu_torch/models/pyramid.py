@@ -20,6 +20,8 @@ import torch
 from remap_tpu_torch.ops import correlate
 from remap_tpu_torch.utils import profiling
 
+match_canvases = correlate.match_canvases_pyramid
+
 
 def match_pyramid(prev: torch.Tensor, curr: torch.Tensor, factor: int = 4,
                   coarse_radius: int = 32, fine_radius: int | None = None):

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from remap_tpu_torch.ops import correlate
 
+match_canvases = correlate.match_canvases
+
 
 def make_matcher(cfg, radius: int = 48):
     def match(prev_frames, curr_frames):

@@ -34,7 +34,6 @@ from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.core.regions import GridLayout
 from remap_tpu_torch.device import current, get_device, same_device, upload
 from remap_tpu_torch.ops import kpe as kpe_ops
-from remap_tpu_torch.ops import kpm as kpm_ops
 from remap_tpu_torch.ops import tables as table_ops
 from remap_tpu_torch.ops.kernels import blit as blit_ops
 from remap_tpu_torch.parallel.mesh import Mesh, clip_sharding
@@ -66,47 +65,27 @@ class StepResult(NamedTuple):
     atlas: torch.Tensor      # [C, AH, AW, 16] uint16 stitch window per clip
 
 
-def match_pairs(prev, curr, layout: GridLayout, cfg: PipelineConfig):
-    """``kpm.match_tables`` of the (prev, curr) tables under ``cfg``'s
-    matcher knobs (the grid_vote matcher)."""
-    return kpm_ops.match_tables(
-        prev, curr, layout,
-        weight_switch=cfg.match.weight_switch,
-        region_votes=cfg.match.region_votes,
-        min_active_divisor=cfg.min_active_divisor,
-        runner_up_divisor=cfg.runner_up_divisor,
-        multiplicity=cfg.join_multiplicity,
-        vote_radius=cfg.vote_radius,
-    )
-
-
 def make_pipeline_step(layout: GridLayout, cfg: PipelineConfig,
                        atlas_pad: int = 64, device=None):
     """Build ``step(images [C, T, H, W] uint8) -> StepResult`` on
     ``device`` (CUDA unless the caller asks for the CPU).
 
-    The alignment follows ``cfg.matcher``: grid_vote extracts (K1) and
-    builds the tables (K2) once over the flattened ``C*T`` frames, then
-    matches the pairs (t-1, t) inside each clip; the correlation families
-    match those pairs' frames.  Positions are the segmented cumsum of the
-    declared offsets, anchored ``atlas_pad`` into each clip's ``(H +
-    2 pad) x (W + 2 pad)`` window and clamped to it, and every clip's
-    frames are voted in one K3 launch into a canvas that stacks the clips'
-    windows.  Frame 0 of each clip is unmatched.  Raises ``ValueError``
-    for an unknown ``cfg.table_mode``."""
-    table_ops.check_table_mode(cfg.table_mode)
+    The alignment follows ``cfg.matcher`` (``models.family``): grid_vote
+    extracts (K1) and builds the tables (K2) once over the flattened
+    ``C*T`` frames, then matches the pairs (t-1, t) inside each clip; the
+    correlation families match those pairs' frames.  Positions are the
+    segmented cumsum of the declared offsets, anchored ``atlas_pad`` into
+    each clip's ``(H + 2 pad) x (W + 2 pad)`` window and clamped to it,
+    and every clip's frames are voted in one K3 launch into a canvas that
+    stacks the clips' windows.  Frame 0 of each clip is unmatched.  Raises
+    ``ValueError`` for an unknown ``cfg.table_mode``."""
     h, w = layout.height, layout.width
     ah, aw = h + 2 * atlas_pad, w + 2 * atlas_pad
     get_device(device)   # raises without CUDA unless the CPU is named
-    pair_match = (None if cfg.matcher == "grid_vote"
-                  else models.get_matcher(cfg.matcher, cfg))
+    family = models.family(cfg, layout)
 
     def step(images: torch.Tensor) -> StepResult:
-        c, t = images.shape[:2]
-        dense = (kpe_ops.extract_dense(images.reshape(c * t, h, w), layout)
-                 if pair_match is None else None)
-        offsets, matched, positions = _align(
-            images, dense, layout, cfg, pair_match)
+        offsets, matched, positions = _align(images, family)
         anchored = _anchor(positions, atlas_pad, aw - w, ah - h)
         return StepResult(offsets=offsets, matched=matched,
                           positions=positions,
@@ -123,29 +102,18 @@ def _anchor(positions: torch.Tensor, pad: int, x_max: int,
                         (positions[..., 1] + pad).clamp(0, y_max)], dim=-1)
 
 
-def _align(images: torch.Tensor, dense, layout: GridLayout,
-           cfg: PipelineConfig, pair_match):
+def _align(images: torch.Tensor, family: models.Family, dense=None):
     """(offsets [C, T, 2] int32, matched [C, T] bool, positions [C, T, 2]
-    int32) of ``[C, T, H, W]`` clips: grid_vote from K1's output ``dense``
-    of the flattened ``C*T`` frames (K2, then the pairs (t-1, t) inside
-    each clip matched), a correlation family from ``pair_match`` on the
-    pairs' frames.  Frame 0 of each clip is unmatched."""
+    int32) of ``[C, T, H, W]`` clips (features from K1's output ``dense``
+    where given).  Frame 0 of each clip is unmatched."""
     c, t, h, w = images.shape
     n = c * (t - 1)
+    features, _ = family.features(images.reshape(c * t, h, w), dense)
+    clips = models.rows(lambda a: a.reshape((c, t) + a.shape[1:]), features)
+    prev = models.rows(lambda a: a[:, :-1].reshape((n,) + a.shape[2:]), clips)
+    curr = models.rows(lambda a: a[:, 1:].reshape((n,) + a.shape[2:]), clips)
+    pair_offsets, pair_ok = family.match(prev, curr)[:2]
     dev = images.device
-    if pair_match is None:
-        tabs = table_ops.build_tables(dense.weight, dense.codes, layout,
-                                      cfg.region_capacity, cfg.table_mode)
-        clips = [a.reshape((c, t) + a.shape[1:]) for a in tabs]
-        prev = table_ops.RegionTables(*(
-            a[:, :-1].reshape((n,) + a.shape[2:]) for a in clips))
-        curr = table_ops.RegionTables(*(
-            a[:, 1:].reshape((n,) + a.shape[2:]) for a in clips))
-        res = match_pairs(prev, curr, layout, cfg)
-        pair_offsets, pair_ok = res.offset, res.ok
-    else:
-        pair_offsets, pair_ok = pair_match(
-            images[:, :-1].reshape(n, h, w), images[:, 1:].reshape(n, h, w))
     offsets = torch.cat([
         torch.zeros((c, 1, 2), dtype=torch.int32, device=dev),
         pair_offsets.reshape(c, t - 1, 2).to(torch.int32)], dim=1)
@@ -228,19 +196,19 @@ def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
     device and returns ``(offsets [T, 2] int32, matched [T] bool,
     StreamFlags, strayed [] bool, new_state)``.  The stitch window follows
     the camera (re-anchoring in-device); ``strayed`` fires when one
-    batch's position span exceeds the window itself.  Raises
-    ``ValueError`` for an unknown ``cfg.table_mode``."""
-    table_ops.check_table_mode(cfg.table_mode)
+    batch's position span exceeds the window itself.  It matches by
+    grid_vote whatever ``cfg.matcher`` says, as the JAX package's step
+    does.  Raises ``ValueError`` for an unknown ``cfg.table_mode``."""
     h, w = layout.height, layout.width
     ah, aw = h + 2 * atlas_pad, w + 2 * atlas_pad
     dev = get_device(device)
+    family = models.GridVote(layout, cfg)
 
     def init_state() -> StreamState:
         return StreamState(
             dots=torch.zeros((blit_ops.DEPTH,) + blit_ops.padded_dims(ah, aw),
                              dtype=torch.int32, device=dev),
-            carry=table_ops.empty_tables(layout.region_count,
-                                         cfg.region_capacity, dev),
+            carry=family.empty_carry(dev),
             position=torch.zeros(2, dtype=torch.int32, device=dev),
             started=torch.zeros((), dtype=torch.bool, device=dev),
             anchor=torch.full((2,), -atlas_pad, dtype=torch.int32,
@@ -251,13 +219,8 @@ def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
 
     def step(images: torch.Tensor, state: StreamState):
         t = images.shape[0]
-        dense = kpe_ops.extract_dense(images, layout)
-        tabs = table_ops.build_tables(dense.weight, dense.codes, layout,
-                                      cfg.region_capacity, cfg.table_mode)
-        prev = table_ops.RegionTables(*(
-            torch.cat([c, a[:-1]], dim=0) for c, a in zip(state.carry, tabs)
-        ))
-        res = match_pairs(prev, tabs, layout, cfg)
+        tabs, _ = family.features(images)
+        res, carry = family.align(tabs, state.carry)
         # the very first frame of the stream never matches
         matched = res.ok & (state.started | (torch.arange(t, device=dev) > 0))
         offsets = torch.where(matched[:, None], res.offset, 0)
@@ -292,7 +255,7 @@ def make_streaming_step(layout: GridLayout, cfg: PipelineConfig,
 
         new_state = StreamState(
             dots=dots,
-            carry=table_ops.RegionTables(*(a[-1:] for a in tabs)),
+            carry=carry,
             position=pos[-1],
             started=torch.ones((), dtype=torch.bool, device=dev),
             anchor=anchor,
@@ -418,11 +381,9 @@ def make_sharded_step(mesh: Mesh, layout: GridLayout, cfg: PipelineConfig,
     (:func:`assemble` puts them together).  Raises for an unknown table
     mode, and where a shard's device or a copy fails: nothing drops back
     to the serial step."""
-    table_ops.check_table_mode(cfg.table_mode)
     h, w = layout.height, layout.width
     ah, aw = h + 2 * atlas_pad, w + 2 * atlas_pad
-    pair_match = (None if cfg.matcher == "grid_vote"
-                  else models.get_matcher(cfg.matcher, cfg))
+    family = models.family(cfg, layout)
     data, space = mesh.shape["data"], mesh.shape["space"]
     frame_bands = row_bands(h, space, kpe_ops.HALO)
     atlas_bands = row_bands(ah, space)
@@ -453,7 +414,7 @@ def make_sharded_step(mesh: Mesh, layout: GridLayout, cfg: PipelineConfig,
         for d in range(data):
             group, bands = mesh.devices[d], batch.shards[d]
             parts = []
-            if pair_match is None:
+            if family.keypoints:
                 for s in range(space):
                     with current(group[s]):
                         parts.append(band_extract(bands, s, group[s]))
@@ -468,8 +429,7 @@ def make_sharded_step(mesh: Mesh, layout: GridLayout, cfg: PipelineConfig,
                                          dim=1),
                         codes=torch.cat([p[1].to(lead) for p in parts],
                                         dim=1))
-                offsets, matched, positions = _align(
-                    frames, dense, layout, cfg, pair_match)
+                offsets, matched, positions = _align(frames, family, dense)
                 anchored = _anchor(positions, atlas_pad, aw - w, ah - h)
             data_shards.append(DataShard(batch.clips[d], lead, offsets,
                                          matched, positions))

@@ -23,11 +23,9 @@ are flagged) under escalated limits until every declaration is exact.
 A replay reads its batches back from the store as packed rows
 (:class:`StoreReplay`): from the device mirror when it holds them, else
 uploaded from the host rows.
-Under the correlation families (``cfg.matcher`` "xcorr" / "pyramid",
-``models``) the match pass matches the frames themselves, carrying the
-previous batch's last frame, and raises no escalation flag; its K1
-launch is the medians-only instantiation, since no table is read there
-(the JAX package also builds the tables it never reads).
+The step matches by ``cfg.matcher``'s family (``models.family``): the
+correlation families match the frames themselves, carrying the previous
+batch's last frame, and raise no escalation flag.
 """
 
 from __future__ import annotations
@@ -46,10 +44,7 @@ from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.core.regions import GridLayout, make_layout
 from remap_tpu_torch.device import HostCopy, get_device, same_device, upload
 from remap_tpu_torch.ops import atlas as atlas_ops
-from remap_tpu_torch.ops import kpe as kpe_ops
-from remap_tpu_torch.ops import tables as table_ops
 from remap_tpu_torch.ops.kernels import blit as kblit
-from remap_tpu_torch.parallel.sharded import match_pairs as _match
 from remap_tpu_torch.pipeline.state import (
     Fragment, FrameRef, FrameStore, pack_nibbles_batch, pack_nibbles_device,
     simulate_growth, unpack_nibbles_device,
@@ -72,7 +67,7 @@ class CollectResult:
     overflow_frames: int
 
 
-def _store_budget(cfg: PipelineConfig, device) -> int:
+def store_budget(cfg: PipelineConfig, device) -> int:
     """Device-mirror byte budget from ``cfg.frame_store``: "hbm" keeps
     whole sessions resident, "host" disables the mirrors, "auto" is "hbm"
     on CUDA and "host" on the CPU."""
@@ -84,12 +79,6 @@ def _store_budget(cfg: PipelineConfig, device) -> int:
     if mode == "host":
         return 0
     return FrameStore.DEVICE_MIRROR_CAP
-
-
-def _kp_need(tabs: table_ops.RegionTables) -> torch.Tensor:
-    """[B] true per-frame keypoint maximum over regions (wcounts count the
-    whole region, not the kept rows)."""
-    return tabs.wcounts.sum(dim=-1).max(dim=-1).values
 
 
 def _stack_scalars(offset, ok, tab_ovf, join_ovf, range_ovf, kp_need):
@@ -104,41 +93,18 @@ def make_collect_step(layout: GridLayout, cfg: PipelineConfig):
     """The pass-1 step for a fixed layout and config:
     ``step(images [B, H, W] uint8, carry) -> (packed medians [B, H,
     ceil(W/2)] uint8, scalars [B, 7] int32, new carry)``, on the device of
-    ``images``.  The carry is (the previous batch's last tables, its last
-    frame): the grid_vote matcher reads the tables, the correlation
-    families the frame."""
-    table_ops.check_table_mode(cfg.table_mode)
-    frame_matcher = (None if cfg.matcher == "grid_vote"
-                     else models.get_matcher(cfg.matcher, cfg))
+    ``images``.  The carry is the previous batch's last features under
+    ``cfg.matcher``'s family (``models.family``): grid_vote's tables, the
+    correlation families' frame.  The three escalation signals stay apart
+    (raise capacity, raise multiplicity, count exactly); kp_need lets the
+    ladder jump the capacity in one step."""
+    family = models.family(cfg, layout)
 
     def step(images: torch.Tensor, carry):
-        carry_tabs, carry_frame = carry
-        new_frame = images[-1:].clone()
-        if frame_matcher is not None:
-            prev_frames = torch.cat([carry_frame, images[:-1]], dim=0)
-            offset, ok = frame_matcher(prev_frames, images)
-            none = torch.zeros_like(ok)
-            scalars = _stack_scalars(offset, ok, none, none, none,
-                                     torch.zeros_like(ok, dtype=torch.int32))
-            median = kpe_ops.extract_medians(images, layout)
-            return (pack_nibbles_device(median), scalars,
-                    (carry_tabs, new_frame))
-        dense = kpe_ops.extract_dense(images, layout)
-        tabs = table_ops.build_tables(dense.weight, dense.codes, layout,
-                                      cfg.region_capacity, cfg.table_mode)
-        prev = table_ops.RegionTables(*(
-            torch.cat([c, t[:-1]], dim=0) for c, t in zip(carry_tabs, tabs)))
-        res = _match(prev, tabs, layout, cfg)
-        # three separate escalation signals: table capacity (raise
-        # capacity), join truncation (raise multiplicity), vote-radius
-        # bound (count exactly); kp_need lets the ladder jump the
-        # capacity in one step
-        scalars = _stack_scalars(res.offset, res.ok,
-                                 tabs.overflow.any(dim=-1), res.overflow,
-                                 res.range_overflow, _kp_need(tabs))
-        new_tabs = table_ops.RegionTables(*(t[-1:].clone() for t in tabs))
-        return (pack_nibbles_device(dense.median), scalars,
-                (new_tabs, new_frame))
+        features, medians = family.features(images)
+        res, carry = family.align(features, carry)
+        scalars = _stack_scalars(*res[:2], *family.flags(res, features))
+        return pack_nibbles_device(medians()), scalars, carry
 
     return step
 
@@ -183,12 +149,69 @@ class StoreReplay:
             return self.store.device_packed_batch(numbers), n_real
 
 
-def _empty_carry(layout: GridLayout, capacity: int, device):
-    """The carry before the first frame: empty tables and a zero frame
-    (frame 0's declaration is forced to no-match whatever they give)."""
-    return (table_ops.empty_tables(layout.region_count, capacity, device),
-            torch.zeros((1, layout.height, layout.width), dtype=torch.uint8,
-                        device=device))
+class BatchLoop:
+    """The match pass's per-batch dispatch, drain and store (also the
+    streaming stitcher's): each batch runs the collect step on the carry,
+    its scalars (and medians) come back through a non-blocking copy
+    ``depth`` batches behind, and its frames land in ``store``, if any."""
+
+    def __init__(self, layout: GridLayout, cfg: PipelineConfig,
+                 store: Optional[FrameStore], device, depth: int):
+        self.cfg, self.store, self.device = cfg, store, device
+        self.depth = max(1, depth)
+        self.step = make_collect_step(layout, cfg)
+        self.carry = models.family(cfg, layout).empty_carry(device)
+        self.pending: deque = deque()
+        #: per drained batch: split_step_scalars of its real frames, frame
+        #: 0 and every unmatched frame at offset 0
+        self.drained = [split_step_scalars(np.zeros((0, 7), np.int32))]
+
+    def dispatch(self, number: int, n_real: int, packed, width: int,
+                 packed_dev=None) -> None:
+        """Run the step on one packed batch: frames cross packed (2
+        px/byte) and unpack on the device; the device copy is donated to
+        the store's mirror, so the blit and foreground passes never upload
+        them again.  A batch already on the device (``packed_dev``)
+        crosses nothing."""
+        if packed_dev is None:
+            packed_dev = upload(packed, self.device)
+        median, scalars, self.carry = self.step(
+            unpack_nibbles_device(packed_dev, width), self.carry)
+        fetched = (HostCopy(scalars, median) if self.cfg.store_medians
+                   else HostCopy(scalars))
+        self.pending.append(
+            (number, n_real, packed, packed_dev, median, fetched))
+        # keep up to `depth` batches in flight: batch n is drained after
+        # batch n+depth is dispatched
+        if len(self.pending) >= self.depth:
+            self.drain()
+
+    def drain(self) -> None:
+        """Take the oldest dispatched batch's outputs, waiting for its
+        copies alone."""
+        num, n_real, packed, packed_dev, median, fetched = (
+            self.pending.popleft())
+        host = fetched.wait()
+        off, ok, *flags = split_step_scalars(host[0][:n_real])
+        if num == 0:
+            ok[0] = False  # frame 0 never matches anything (frc.hpp:83-95)
+        off[~ok] = 0
+        self.drained.append((off, ok, *flags))
+        if self.store is not None:
+            medians = self.cfg.store_medians
+            self.store.put_packed_batch(
+                list(range(num, num + n_real)), packed[:n_real],
+                host[1][:n_real] if medians else None,
+                device_packed=packed_dev[:n_real],
+                device_packed_medians=median[:n_real] if medians else None)
+
+    def results(self):
+        """Everything in flight drained: (offsets, matched, table_flags,
+        join_flags, range_flags, kp_need) of every frame."""
+        while self.pending:
+            self.drain()
+        *per_frame, kp_need = map(np.concatenate, zip(*self.drained))
+        return (*per_frame, int(kp_need.max(initial=0)))
 
 
 def match_pass(
@@ -211,61 +234,8 @@ def match_pass(
     truncation and the vote-radius bound of the (t-1, t) declaration),
     and the clip's true maximum per-region keypoint count."""
     dev = get_device(device)
-    step = make_collect_step(layout, cfg)
-    b = cfg.frame_batch
-
-    offsets: List[np.ndarray] = []
-    matched: List[np.ndarray] = []
-    tab_flags: List[np.ndarray] = []
-    join_flags: List[np.ndarray] = []
-    range_flags: List[np.ndarray] = []
-    kp_need = 0
-    carry = _empty_carry(layout, cfg.region_capacity, dev)
-    pending: deque = deque()
-    depth = max(1, cfg.collect_drain_depth)
-
-    def drain(p) -> None:
-        """Take one dispatched step's outputs, waiting for its copies
-        alone."""
-        nonlocal kp_need
-        num, n_real, packed, packed_dev, median, fetched = p
-        host = fetched.wait()
-        off, ok, tovf, jovf, rovf, kpn = split_step_scalars(host[0][:n_real])
-        offsets.append(off)
-        matched.append(ok)
-        tab_flags.append(tovf)
-        join_flags.append(jovf)
-        range_flags.append(rovf)
-        kp_need = max(kp_need, int(kpn.max(initial=0)))
-        if store is not None:
-            store.put_packed_batch(
-                list(range(num, num + n_real)),
-                packed[:n_real],
-                host[1][:n_real] if cfg.store_medians else None,
-                device_packed=packed_dev[:n_real],
-                device_packed_medians=(median[:n_real] if cfg.store_medians
-                                       else None),
-            )
-
-    def dispatch(number, n_real, packed, width, packed_dev=None) -> None:
-        """Run the step on one packed batch: frames cross packed (2
-        px/byte) and unpack on the device; the device copy is donated to
-        the store's mirror, so the blit and foreground passes never upload
-        them again.  A batch already on the device (``packed_dev``)
-        crosses nothing."""
-        nonlocal carry
-        if packed_dev is None:
-            packed_dev = upload(packed, dev)
-        median, scalars, carry = step(
-            unpack_nibbles_device(packed_dev, width), carry)
-        fetched = (HostCopy(scalars, median) if cfg.store_medians
-                   else HostCopy(scalars))
-        pending.append((number, n_real, packed, packed_dev, median, fetched))
-        # keep up to `depth` batches in flight: batch n is drained after
-        # batch n+depth is dispatched
-        if len(pending) >= depth:
-            drain(pending.popleft())
-
+    loop = BatchLoop(layout, cfg, store, dev, cfg.collect_drain_depth)
+    b = n_real = cfg.frame_batch
     replay = frames if isinstance(frames, StoreReplay) else None
     feed = frames if hasattr(frames, "read_packed_batch") else None
     it = None if feed is not None or replay is not None else iter(frames)
@@ -275,7 +245,7 @@ def match_pass(
     fut = pool.submit(feed.read_packed_batch, 0, b) if pool else None
     number = 0
     try:
-        while True:
+        while n_real == b:  # a short batch is the last
             packed_dev = None
             if replay is not None:
                 # the stored packed rows, already on the device
@@ -307,32 +277,12 @@ def match_pass(
                     stacked = np.stack(batch + [batch[-1]] * (b - n_real))
                     packed = pack_nibbles_batch(stacked)
                 width = stacked.shape[-1]
-            dispatch(number, n_real, packed, width, packed_dev)
+            loop.dispatch(number, n_real, packed, width, packed_dev)
             number += n_real
-            if n_real < b:
-                break
     finally:
         if pool is not None:
             pool.shutdown(wait=True)
-    while pending:
-        drain(pending.popleft())
-
-    if not offsets:
-        z = np.zeros((0,), bool)
-        return np.zeros((0, 2), np.int32), z, z, z, z, 0
-    off = np.concatenate(offsets)
-    ok = np.concatenate(matched)
-    # frame 0 never matches anything (frc.hpp:83-95)
-    ok[0] = False
-    off[0] = 0
-    off[~ok] = 0
-    return (
-        off, ok,
-        np.concatenate(tab_flags),
-        np.concatenate(join_flags),
-        np.concatenate(range_flags),
-        kp_need,
-    )
+    return loop.results()
 
 
 def make_pair_step(layout: GridLayout, cfg: PipelineConfig):
@@ -343,21 +293,17 @@ def make_pair_step(layout: GridLayout, cfg: PipelineConfig):
     laid out as the collect step's (tab flags either endpoint's, kp_need
     the larger).  It is the grid_vote matcher's: the correlation families
     raise no flag, so the ladder never re-matches their pairs."""
-    table_ops.check_table_mode(cfg.table_mode)
-
-    def tables(images):
-        dense = kpe_ops.extract_dense(images, layout)
-        return table_ops.build_tables(dense.weight, dense.codes, layout,
-                                      cfg.region_capacity, cfg.table_mode)
+    family = models.GridVote(layout, cfg)
+    kp_need = models.grid_vote.kp_need
 
     def pair_step(prev_images: torch.Tensor, curr_images: torch.Tensor):
-        tp, tc = tables(prev_images), tables(curr_images)
-        res = _match(tp, tc, layout, cfg)
+        (tp, _), (tc, _) = map(family.features, (prev_images, curr_images))
+        res = family.match(tp, tc)
         return _stack_scalars(
             res.offset, res.ok,
             tp.overflow.any(dim=-1) | tc.overflow.any(dim=-1),
             res.overflow, res.range_overflow,
-            torch.maximum(_kp_need(tp), _kp_need(tc)))
+            torch.maximum(kp_need(tp), kp_need(tc)))
 
     return pair_step
 
@@ -378,28 +324,20 @@ def repair_pairs(
     keypoint count."""
     step = make_pair_step(layout, cfg)
     b = cfg.frame_batch
-    tabs = np.zeros(len(pair_idx), bool)
-    joins = np.zeros(len(pair_idx), bool)
-    ranges = np.zeros(len(pair_idx), bool)
-    kp_need = 0
+    rows = [np.zeros((0, 7), np.int32)]
     for i in range(0, len(pair_idx), b):
         chunk = list(pair_idx[i:i + b])
-        n_real = len(chunk)
-        pad = chunk + [chunk[-1]] * (b - n_real)
+        pad = chunk + [chunk[-1]] * (b - len(chunk))
         prev_imgs = unpack_nibbles_device(
             store.device_packed_batch([t - 1 for t in pad]), store.width)
         curr_imgs = unpack_nibbles_device(store.device_packed_batch(pad),
                                           store.width)
-        scalars = step(prev_imgs, curr_imgs).cpu().numpy()[:n_real]
-        off, ok, tab, jov, rov, kpn = split_step_scalars(scalars)
-        for k, t in enumerate(chunk):
-            matched[t] = ok[k]
-            offsets[t] = off[k] if ok[k] else 0
-        tabs[i:i + n_real] = tab
-        joins[i:i + n_real] = jov
-        ranges[i:i + n_real] = rov
-        kp_need = max(kp_need, int(kpn.max(initial=0)))
-    return tabs, joins, ranges, kp_need
+        rows.append(step(prev_imgs, curr_imgs).cpu().numpy()[:len(chunk)])
+    off, ok, tabs, joins, ranges, kpn = split_step_scalars(
+        np.concatenate(rows))
+    matched[pair_idx] = ok
+    offsets[pair_idx] = np.where(ok[:, None], off, 0)
+    return tabs, joins, ranges, int(kpn.max(initial=0))
 
 
 def segment_positions(offsets: np.ndarray, matched: np.ndarray) -> Segments:
@@ -531,7 +469,7 @@ def collect(
     if layout is None:
         layout = make_layout(w, h, cfg.grid_width, cfg.grid_height,
                              cfg.grid_overlap)
-    store = FrameStore(h, w, device_budget=_store_budget(cfg, dev),
+    store = FrameStore(h, w, device_budget=store_budget(cfg, dev),
                        device=dev)
 
     with profiling.span("collect.pass", device=dev, rung=0,

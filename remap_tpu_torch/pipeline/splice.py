@@ -12,8 +12,9 @@ re-matches it against the rest, and repeats until no edges remain.
 Canvas merges replay fgm's step-quantised growth exactly.
 
 Under the correlation families (``cfg.matcher`` "xcorr" / "pyramid") a
-snippet is the blended canvas alone, and pairs are aligned by the dense
-masked-agreement correlation (``ops.correlate.match_canvases``, or its
+snippet is the blended canvas alone, and pairs are aligned by the
+family's canvas matcher (``models.family(cfg).canvas_matcher``: the dense
+masked-agreement correlation ``ops.correlate.match_canvases``, or its
 pyramid), whose peak agreement count takes the cellular vote count's
 place in the greedy merge order.
 
@@ -33,11 +34,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from remap_tpu_torch import models
 from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.core.regions import make_layout
 from remap_tpu_torch.device import current
 from remap_tpu_torch.ops import atlas as atlas_ops
-from remap_tpu_torch.ops import correlate
 from remap_tpu_torch.ops import kpe as kpe_ops
 from remap_tpu_torch.ops import splice as splice_ops
 from remap_tpu_torch.ops import tables as table_ops
@@ -106,7 +107,7 @@ def _snippet_dispatch(frag: Fragment, cfg: PipelineConfig, device=None,
     dots = (frag.device_dots(device) if on is None
             else frag.canvas_on(on))[:, :ch, :cw]
     image, mask = atlas_ops.blend(dots)
-    if cfg.matcher != "grid_vote":
+    if models.family(cfg).canvas_matcher is not None:
         return image, mask, None, None, None
     hb2, wb2 = _round_up(ch, _SHAPE_BUCKET), _round_up(cw, _SHAPE_BUCKET)
     image = F.pad(image, (0, wb2 - cw, 0, hb2 - ch))
@@ -264,12 +265,12 @@ def _match(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
         if pad is None:
             pad = _PadState()
             pad.update([head, other])
-        if cfg.matcher != "grid_vote":
-            fn = (correlate.match_canvases if cfg.matcher == "xcorr"
-                  else correlate.match_canvases_pyramid)
-            res = fn(pad.image(head), pad.mask(head), pad.image(other),
-                     pad.mask(other), min_overlap=cfg.splice_min_overlap,
-                     ratio=cfg.splice_xcorr_ratio)
+        canvas_match = models.family(cfg).canvas_matcher
+        if canvas_match is not None:
+            res = canvas_match(pad.image(head), pad.mask(head),
+                               pad.image(other), pad.mask(other),
+                               min_overlap=cfg.splice_min_overlap,
+                               ratio=cfg.splice_xcorr_ratio)
         else:
             res, mult = _match_tables(head, other, cfg, pad)
             sp.set(multiplicity=mult)

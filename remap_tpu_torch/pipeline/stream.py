@@ -28,35 +28,27 @@ import numpy as np
 
 from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.core.regions import make_layout
-from remap_tpu_torch.device import HostCopy, get_device, upload
+from remap_tpu_torch.device import get_device
 from remap_tpu_torch.pipeline import collect as collect_mod
 from remap_tpu_torch.pipeline.state import (
-    Fragment, FrameStore, pack_nibbles_batch, unpack_nibbles_device,
+    Fragment, FrameStore, pack_nibbles_batch,
 )
 
 
-class StreamingStitcher:
+class StreamingStitcher(collect_mod.BatchLoop):
     """Push ``[B, H, W]`` uint8 batches at ``cfg``'s screen size, then
     ``finish()``; runs on ``device``, CUDA unless the caller asks for the
-    CPU."""
+    CPU.  It is collect's batch loop, each pushed batch drained at once."""
 
     def __init__(self, cfg: PipelineConfig, device=None):
-        self.cfg = cfg
-        self.device = get_device(device)
-        h, w = cfg.screen_height, cfg.screen_width
-        self.h, self.w = h, w
+        device = get_device(device)
+        self.h, self.w = h, w = cfg.screen_height, cfg.screen_width
         self.layout = make_layout(w, h, cfg.grid_width, cfg.grid_height,
                                   cfg.grid_overlap)
-        self._step = collect_mod.make_collect_step(self.layout, cfg)
-        self._carry = collect_mod._empty_carry(self.layout,
-                                               cfg.region_capacity,
-                                               self.device)
-        self.store = FrameStore(
-            h, w, device_budget=collect_mod._store_budget(cfg, self.device),
-            device=self.device)
+        super().__init__(self.layout, cfg, FrameStore(
+            h, w, device_budget=collect_mod.store_budget(cfg, device),
+            device=device), device, depth=1)
         self.frame_no = 0
-        self._offsets: List[np.ndarray] = []
-        self._matched: List[np.ndarray] = []
         self.overflow_frames = 0
         #: frames where the vote-radius exactness bound tripped (only
         #: possible with cfg.vote_radius > 0); join limits held, so a
@@ -73,44 +65,19 @@ class StreamingStitcher:
         if n_real < b:
             batch = np.concatenate(
                 [batch, np.repeat(batch[-1:], b - n_real, axis=0)])
-        packed = pack_nibbles_batch(np.asarray(batch))
-        packed_dev = upload(packed, self.device)
-        images = unpack_nibbles_device(packed_dev, self.w)
-        median, scalars, self._carry = self._step(images, self._carry)
-        medians = self.cfg.store_medians
-        host = (HostCopy(scalars, median) if medians
-                else HostCopy(scalars)).wait()
-        off, ok, tovf, jovf, rovf, kpn = collect_mod.split_step_scalars(
-            host[0][:n_real])
+        self.dispatch(self.frame_no, n_real,
+                      pack_nibbles_batch(np.asarray(batch)), self.w)
+        off, ok, tovf, jovf, rovf, kpn = self.drained[-1]
         self.needed_capacity = max(self.needed_capacity,
                                    int(kpn.max(initial=0)))
-        off = off.copy()
-        ok = ok.copy()
-        if self.frame_no == 0:
-            ok[0] = False
-        off[~ok] = 0
         # range overflow counts as overflow for the public counter: a
         # caller checking only overflow_frames never accepts inexact
         # offsets silently
-        ovf = tovf | jovf | rovf
-        self.overflow_frames += int(ovf.sum())
+        self.overflow_frames += int((tovf | jovf | rovf).sum())
         self.range_overflow_frames += int(rovf.sum())
-        self.store.put_packed_batch(
-            list(range(self.frame_no, self.frame_no + n_real)),
-            packed[:n_real],
-            host[1][:n_real] if medians else None,
-            device_packed=packed_dev[:n_real],
-            device_packed_medians=median[:n_real] if medians else None,
-        )
         self.frame_no += n_real
-        self._offsets.append(off)
-        self._matched.append(ok)
         return off, ok
 
     def finish(self) -> List[Fragment]:
-        if not self._offsets:
-            return []
-        offsets = np.concatenate(self._offsets)
-        matched = np.concatenate(self._matched)
-        segments = collect_mod.segment_positions(offsets, matched)
+        segments = collect_mod.segment_positions(*self.results()[:2])
         return collect_mod.blit_pass(segments, self.store, self.cfg)

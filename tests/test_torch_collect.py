@@ -13,7 +13,11 @@ from remap_tpu.pipeline import collect as jcollect
 from remap_tpu.pipeline import stream as jstream
 from remap_tpu.utils import testing
 from remap_tpu_torch import convert
+from remap_tpu_torch import models as tmodels
 from remap_tpu_torch.config import PipelineConfig
+from remap_tpu_torch.core.regions import make_layout
+from remap_tpu_torch.ops import kpe as tkpe
+from remap_tpu_torch.parallel import sharded as tsharded
 from remap_tpu_torch.pipeline import collect as tcollect
 from remap_tpu_torch.pipeline import state as tstate
 from remap_tpu_torch.pipeline import stream as tstream
@@ -129,21 +133,26 @@ def test_strict_retry_on_repetitive_texture(ladder):
     assert any(c[2] != 1 and c[3] == 0 for c in ladder[1:]), ladder
 
 
-def test_incremental_repair_matches_exhaustive(ladder):
-    """The strict loop re-matches only the flagged pairs (a repetitive
-    stripe the camera reaches in its last frames): the result equals the
-    JAX package's and a run with exhaustive limits from the start (the
-    dense join, exact counting)."""
+def _stripe_path_frames():
+    """A camera path that reaches a repetitive stripe in its last frames,
+    and the tight limits under which some of its pairs flag."""
     rng = np.random.default_rng(31)
     world = testing.make_world(180, 400, rng)
     tile = rng.integers(0, 16, size=(4, 4), dtype=np.uint8)
     world[:, 130:160] = np.tile(tile, (45, 8))[:, :30]
     path = [(10 + 3 * i, 30 + (i % 3)) for i in range(12)]
-    frames = [world[y:y + 64, x:x + 96] for x, y in path]
-
     tight = dataclasses.replace(CFG, region_capacity=512,
                                 join_multiplicity=1, frame_batch=4,
                                 vote_radius=4)
+    return [world[y:y + 64, x:x + 96] for x, y in path], tight, rng
+
+
+def test_incremental_repair_matches_exhaustive(ladder):
+    """The strict loop re-matches only the flagged pairs (a repetitive
+    stripe the camera reaches in its last frames): the result equals the
+    JAX package's and a run with exhaustive limits from the start (the
+    dense join, exact counting)."""
+    frames, tight, _ = _stripe_path_frames()
     got = _collect_both(frames, tight)
     assert got.overflow_frames == 0
     repairs = [c for c in ladder if c[0] == "repair"]
@@ -191,6 +200,65 @@ def test_stitcher_matches_jax():
         g, w = convert.fragment_to_numpy(g), convert.fragment_to_numpy(w)
         assert g.frames == w.frames
         np.testing.assert_array_equal(g.dots, w.dots)
+
+
+def test_grid_vote_core_is_one_through_every_step():
+    """grid_vote's alignment core (``models.grid_vote``) gives one answer
+    through every step that runs it: on the stripe clip with a noise
+    frame spliced in (a table overflow, a join truncation and a break),
+    the collect step batch by batch with its carry, the ladder's pair
+    step on every (t-1, t), the streaming step and the multi-clip step
+    give the JAX collect pass's offsets, matches and flags."""
+    frames, cfg, rng = _stripe_path_frames()
+    frames.insert(5, rng.integers(0, 16, size=(64, 96), dtype=np.uint8))
+    n, b = len(frames), cfg.frame_batch
+    layout = make_layout(96, 64, cfg.grid_width, cfg.grid_height,
+                         cfg.grid_overlap)
+    off, ok, tab, join, rng_, kp = jcollect.match_pass(
+        frames, jax_twin(layout), jax_twin(cfg))
+    assert tab.any() and join.any() and not ok[1:].all()
+    imgs = torch.from_numpy(np.stack(frames))
+
+    step = tcollect.make_collect_step(layout, cfg)
+    carry = tmodels.family(cfg, layout).empty_carry("cpu")
+    rows = []
+    for i in range(0, n, b):
+        batch = imgs[i:i + b]
+        batch = torch.cat([batch, batch[-1:].expand(b - len(batch), -1, -1)])
+        median, scalars, carry = step(batch, carry)
+        assert torch.equal(median, tstate.pack_nibbles_device(
+            tkpe.extract_medians(batch, layout)))
+        rows.append(scalars[:min(b, n - i)].numpy())
+    c_off, c_ok, c_tab, c_join, c_rng, c_kp = tcollect.split_step_scalars(
+        np.concatenate(rows))
+    c_ok[0] = False
+    np.testing.assert_array_equal(np.where(c_ok[:, None], c_off, 0), off)
+    for got, want in ((c_ok, ok), (c_tab, tab), (c_join, join),
+                      (c_rng, rng_)):
+        np.testing.assert_array_equal(got, want)
+    assert c_kp.max() == kp
+
+    pair = tcollect.make_pair_step(layout, cfg)(imgs[:-1], imgs[1:]).numpy()
+    p_off, p_ok, p_tab, p_join, p_rng, _ = tcollect.split_step_scalars(pair)
+    np.testing.assert_array_equal(np.where(p_ok[:, None], p_off, 0), off[1:])
+    np.testing.assert_array_equal(p_ok, ok[1:])
+    np.testing.assert_array_equal(p_tab, tab[1:] | tab[:-1])
+    np.testing.assert_array_equal(p_join, join[1:])
+    np.testing.assert_array_equal(p_rng, rng_[1:])
+
+    init, sstep = tsharded.make_streaming_step(layout, cfg, device="cpu")
+    state, got = init(), []
+    for i in range(0, n, b):
+        s_off, s_ok, flags, _, state = sstep(imgs[i:i + b], state)
+        got.append((s_off, s_ok, flags.table, flags.join, flags.range))
+    for k, want in enumerate((off, ok, tab, join, rng_)):
+        np.testing.assert_array_equal(
+            torch.cat([g[k] for g in got]).numpy(), want)
+
+    res = tsharded.make_pipeline_step(layout, cfg, device="cpu")(imgs[None])
+    np.testing.assert_array_equal(res.matched[0].numpy(), ok)
+    np.testing.assert_array_equal(
+        np.where(ok[:, None], res.offsets[0].numpy(), 0), off)
 
 
 def test_collect_edges():
@@ -300,10 +368,10 @@ def test_stitcher_families_match_jax(family):
 
 
 def test_store_budget_auto_by_device():
-    assert tcollect._store_budget(CFG, "cpu") == 0
-    assert tcollect._store_budget(CFG, "cuda") == tcollect.FrameStore.HBM_STORE_BUDGET
+    assert tcollect.store_budget(CFG, "cpu") == 0
+    assert tcollect.store_budget(CFG, "cuda") == tcollect.FrameStore.HBM_STORE_BUDGET
     hbm = dataclasses.replace(CFG, frame_store="hbm")
-    assert tcollect._store_budget(hbm, "cpu") == tcollect.FrameStore.HBM_STORE_BUDGET
+    assert tcollect.store_budget(hbm, "cpu") == tcollect.FrameStore.HBM_STORE_BUDGET
 
 
 def test_fragment_host_dots_are_read_only():

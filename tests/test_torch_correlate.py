@@ -363,4 +363,4 @@ def test_get_matcher_matches_jax(world, name):
 
 def test_get_matcher_rejects_unknown():
     with pytest.raises(ValueError, match="unknown matcher"):
-        tmodels.get_matcher("grid_vote", PipelineConfig())
+        tmodels.get_matcher("bogus", PipelineConfig())

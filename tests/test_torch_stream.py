@@ -239,7 +239,64 @@ def test_port_modules_include_the_matcher_slice():
     names = set(_port_modules())
     assert {"remap_tpu_torch.ops.correlate", "remap_tpu_torch.models",
             "remap_tpu_torch.models.xcorr",
-            "remap_tpu_torch.models.pyramid"} <= names
+            "remap_tpu_torch.models.pyramid",
+            "remap_tpu_torch.models.grid_vote"} <= names
+
+
+def _family_choices(tree: ast.AST) -> list:
+    """Line numbers of every comparison of a ``.matcher`` attribute with a
+    family name (or a tuple of them)."""
+    from remap_tpu_torch.models import FAMILIES
+
+    def names(node):
+        if isinstance(node, ast.Constant):
+            return {node.value}
+        if isinstance(node, (ast.Tuple, ast.List, ast.Set)):
+            return set().union(*map(names, node.elts))
+        return set()
+
+    lines = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Compare):
+            sides = [node.left] + node.comparators
+            if (any(isinstance(n, ast.Attribute) and n.attr == "matcher"
+                    for n in sides)
+                    and any(names(n) & set(FAMILIES) for n in sides)):
+                lines.append(node.lineno)
+    return lines
+
+
+def test_matcher_families_live_in_models():
+    """Only ``models/`` chooses between the matcher families: no other
+    module of the port (the CLI's choices and the config's docs aside;
+    ``spec/`` is the JAX package's copied spec) compares ``.matcher`` with
+    a family name, and no module of ``pipeline/`` imports the multi-device
+    layer's ``parallel.sharded``."""
+    pkg = Path(__file__).resolve().parent.parent / "remap_tpu_torch"
+    assert _family_choices(ast.parse('if cfg.matcher != "grid_vote": pass'))
+    assert _family_choices(ast.parse('x = c.matcher in ("xcorr", "pyramid")'))
+    found = {}
+    for path in sorted(pkg.rglob("*.py")):
+        rel = path.relative_to(pkg).as_posix()
+        if rel.startswith(("models/", "spec/")) or rel in ("cli.py",
+                                                           "config.py"):
+            continue
+        lines = _family_choices(ast.parse(path.read_text()))
+        if lines:
+            found[rel] = lines
+    assert not found, found
+    sharded = "remap_tpu_torch.parallel.sharded"
+    for path in sorted((pkg / "pipeline").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                full = [f"{node.module}.{a.name}" for a in node.names]
+                full.append(node.module or "")
+            elif isinstance(node, ast.Import):
+                full = [a.name for a in node.names]
+            else:
+                continue
+            assert not any(n.startswith(sharded) for n in full), (
+                path.name, node.lineno)
 
 
 def test_port_modules_include_the_multi_device_slice():
