@@ -1090,10 +1090,13 @@ def repetitive_clip(n: int, h: int, w: int, seed: int = 53):
 def recorded_ladder(dev, rungs: list):
     """Record every pass of collect() in ``rungs``: kind (the match pass,
     a pair repair, the blit pass), the rung's capacity, multiplicity, vote
-    radius and batch, the frames or pairs it took, the flags it left,
-    wall ms and peak device memory (MiB).  The first match pass's offsets
-    and matched flags are kept."""
+    radius and batch, the frames or pairs it took, the flags it left, the
+    largest keypoint need it measured, the flagged pairs its capacity left
+    to a later rung (the counter ``collect.capacity_outliers`` of its
+    span), wall ms and peak device memory (MiB).  The first match pass's
+    offsets and matched flags are kept."""
     from remap_tpu_torch.pipeline import collect
+    from remap_tpu_torch.utils import profiling
 
     real = collect.match_pass, collect.repair_pairs, collect.blit_pass
 
@@ -1129,7 +1132,7 @@ def recorded_ladder(dev, rungs: list):
             source = counted()
         out = timed(rec, real[0], source, layout, cfg, store, device)
         rec["flags"] = tuple(int(f.sum()) for f in out[2:5])
-        rec["kp_need"] = out[5]
+        rec["kp_need"] = int(out[5].max(initial=0))
         if len(rungs) == 1:
             rec["offsets"], rec["matched"] = out[0].copy(), out[1].copy()
         return out
@@ -1139,6 +1142,7 @@ def recorded_ladder(dev, rungs: list):
         out = timed(rec, real[1], pairs, store, layout, cfg, offsets,
                     matched)
         rec["flags"] = tuple(int(f.sum()) for f in out[:3])
+        rec["kp_need"] = int(out[3].max(initial=0))
         return out
 
     def blit_pass(segments, store, cfg):
@@ -1148,9 +1152,14 @@ def recorded_ladder(dev, rungs: list):
     collect.match_pass, collect.repair_pairs, collect.blit_pass = (
         match_pass, repair_pairs, blit_pass)
     try:
-        yield rungs
+        with profiling.span("smoke.ladder"):
+            yield rungs
     finally:
         collect.match_pass, collect.repair_pairs, collect.blit_pass = real
+    spans = [s for s in profiling.recorder("smoke.ladder")[-1].spans
+             if s.name in ("collect.pass", "collect.repair")]
+    for r, s in zip([r for r in rungs if r["kind"] != "blit"], spans):
+        r["outliers"] = s.counts.get("collect.capacity_outliers", 0)
 
 
 def describe(rungs: list) -> str:
@@ -1164,7 +1173,8 @@ def describe(rungs: list) -> str:
             f" at capacity {r['capacity']}, multiplicity {r['multiplicity']}"
             f"{' (dense)' if r['multiplicity'] == 0 else ''}, radius "
             f"{r['radius']}, batch {r['batch']}: flags (table, join, range) "
-            f"{r['flags']}, {r['ms']:.1f} ms"
+            f"{r['flags']}, keypoint need up to {r['kp_need']}, "
+            f"{r.get('outliers', 0)} outliers left, {r['ms']:.1f} ms"
             + ("" if r["peak_mb"] is None
                else f", peak {r['peak_mb']:.0f} MiB allocated"))
     return "; ".join(parts)
@@ -1530,7 +1540,8 @@ def collect_phase(dev, counters: dict, smi: str):
         f"camera deltas, unmatched only at 0, {NOISE_AT}, {NOISE_AT + 1}, "
         f"overflow_frames 0, {len(res.fragments)} fragments; launches "
         f"{launches}")
-    log(f"collect ladder: {describe(rungs)}")
+    log(f"collect ladder: {describe(rungs)}; "
+        f"{sum(r.get('outliers', 0) for r in rungs)} capacity outliers")
     # the same ladder from a store with no device mirror: the replay
     # uploads the host's packed rows
     host_rungs: list = []
@@ -1553,9 +1564,10 @@ def collect_phase(dev, counters: dict, smi: str):
         f"{first['ms']:.1f} ms ({n / first['ms'] * 1e3:.1f} frames/s); blit "
         f"pass {blit_ms:.1f} ms; whole chain {t['chain_s']:.3f} s "
         f"({n / t['chain_s']:.1f} frames/s of wall)")
-    exact = [r for r in rungs if r["kind"] == "pass"][-1]
-    ecfg = dataclasses.replace(cfg, region_capacity=exact["capacity"])
-    for what, pcfg, rec in (("first", cfg, first), ("exact", ecfg, exact)):
+    replay = [r for r in rungs if r["kind"] == "pass"][-1]
+    ecfg = dataclasses.replace(cfg, region_capacity=replay["capacity"])
+    for what, pcfg, rec in (("first", cfg, first),
+                            ("replay", ecfg, replay)):
         batch_ms, idle, dev_ms, wall_ms, ops = match_pass_idle(
             dev, cropped, pcfg, rec["ms"], -(-n // cfg.frame_batch))
         log(f"match pass ({what}, capacity {pcfg.region_capacity}): one "

@@ -96,8 +96,8 @@ def make_collect_step(layout: GridLayout, cfg: PipelineConfig):
     ``images``.  The carry is the previous batch's last features under
     ``cfg.matcher``'s family (``models.family``): grid_vote's tables, the
     correlation families' frame.  The three escalation signals stay apart
-    (raise capacity, raise multiplicity, count exactly); kp_need lets the
-    ladder jump the capacity in one step."""
+    (raise capacity, raise multiplicity, count exactly); each frame's
+    kp_need lets the ladder choose the capacity its pairs need."""
     family = models.family(cfg, layout)
 
     def step(images: torch.Tensor, carry):
@@ -210,8 +210,7 @@ class BatchLoop:
         join_flags, range_flags, kp_need) of every frame."""
         while self.pending:
             self.drain()
-        *per_frame, kp_need = map(np.concatenate, zip(*self.drained))
-        return (*per_frame, int(kp_need.max(initial=0)))
+        return tuple(map(np.concatenate, zip(*self.drained)))
 
 
 def match_pass(
@@ -221,7 +220,7 @@ def match_pass(
     store: Optional[FrameStore] = None,
     device=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
-           int]:
+           np.ndarray]:
     """Pass 1 on ``device`` (CUDA unless the caller asks for the CPU):
     per-frame match offsets and flags, filling ``store`` when given.
     ``frames`` is an iterable of host frames, a feed with
@@ -232,7 +231,7 @@ def match_pass(
     kp_need): the three per-frame escalation signals kept apart (table
     capacity or sort2-quota overflow of frame t's tables, join
     truncation and the vote-radius bound of the (t-1, t) declaration),
-    and the clip's true maximum per-region keypoint count."""
+    and each frame's true maximum per-region keypoint count."""
     dev = get_device(device)
     loop = BatchLoop(layout, cfg, store, dev, cfg.collect_drain_depth)
     b = n_real = cfg.frame_batch
@@ -315,29 +314,29 @@ def repair_pairs(
     cfg: PipelineConfig,
     offsets: np.ndarray,
     matched: np.ndarray,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Re-match the pairs (t-1, t) for every t in ``pair_idx`` under
-    ``cfg`` on the store's device, writing the new declarations into
-    ``offsets``/``matched`` in place.  Frames come from the store's
-    mirror when it holds them.  Returns per-pair (tab, join, range) flag
-    arrays aligned with ``pair_idx`` and the pairs' true max per-region
-    keypoint count."""
+    ``cfg`` on the store's device, in chunks of at most ``frame_batch``
+    pairs, writing the new declarations into ``offsets``/``matched`` in
+    place.  Frames come from the store's mirror when it holds them.
+    Returns per-pair (tab, join, range) flag arrays aligned with
+    ``pair_idx`` and each pair's true max per-region keypoint count (the
+    larger of its endpoints')."""
     step = make_pair_step(layout, cfg)
     b = cfg.frame_batch
     rows = [np.zeros((0, 7), np.int32)]
     for i in range(0, len(pair_idx), b):
         chunk = list(pair_idx[i:i + b])
-        pad = chunk + [chunk[-1]] * (b - len(chunk))
         prev_imgs = unpack_nibbles_device(
-            store.device_packed_batch([t - 1 for t in pad]), store.width)
-        curr_imgs = unpack_nibbles_device(store.device_packed_batch(pad),
+            store.device_packed_batch([t - 1 for t in chunk]), store.width)
+        curr_imgs = unpack_nibbles_device(store.device_packed_batch(chunk),
                                           store.width)
-        rows.append(step(prev_imgs, curr_imgs).cpu().numpy()[:len(chunk)])
+        rows.append(step(prev_imgs, curr_imgs).cpu().numpy())
     off, ok, tabs, joins, ranges, kpn = split_step_scalars(
         np.concatenate(rows))
     matched[pair_idx] = ok
     offsets[pair_idx] = np.where(ok[:, None], off, 0)
-    return tabs, joins, ranges, int(kpn.max(initial=0))
+    return tabs, joins, ranges, kpn
 
 
 def segment_positions(offsets: np.ndarray, matched: np.ndarray) -> Segments:
@@ -421,16 +420,46 @@ def blit_pass(segments: Segments, store: FrameStore,
     return fragments
 
 
-def _pair_flags(tabf: np.ndarray, joinf: np.ndarray, rangef: np.ndarray):
-    """Per-PAIR flags: the (t-1, t) declaration is suspect if either
-    endpoint's tables overflowed or the pair's join/radius bound tripped.
-    Pair 0 is exempt: its declaration is forced to no-match
-    (frc.hpp:83-95)."""
-    ptab = tabf.copy()
+def _pair_flags(tabf: np.ndarray, joinf: np.ndarray, rangef: np.ndarray,
+                need: np.ndarray):
+    """Per-PAIR flags and keypoint needs: the (t-1, t) declaration is
+    suspect if either endpoint's tables overflowed or the pair's
+    join/radius bound tripped, and it needs the larger of its endpoints'
+    keypoint counts.  Pair 0 is exempt: its declaration is forced to
+    no-match (frc.hpp:83-95)."""
+    ptab, pneed = tabf.copy(), need.copy()
     if len(ptab):
         ptab[1:] |= tabf[:-1]
+        pneed[1:] = np.maximum(need[1:], need[:-1])
         ptab[0] = joinf[0] = rangef[0] = False
-    return ptab, joinf, rangef
+    return ptab, joinf, rangef, pneed
+
+
+def _rung_capacity(current: int, need: np.ndarray, n: int) -> int:
+    """The table capacity a capacity rung escalates to, from the flagged
+    pairs' keypoint needs ``need`` in a clip of ``n`` frames: of the
+    doublings of ``max(2 * current, 256)`` up to :data:`MAX_CAPACITY`
+    (the last one capped there), the one with the least reckoned work.  A
+    candidate counts its capacity for every frame the rung re-matches
+    (the clip when it takes most pairs, both endpoints of each pair
+    otherwise), and each pair it leaves to a later rung as two endpoints
+    at the candidate that holds that pair's need.  Ties go to the larger
+    capacity, which takes fewer rungs.  Uniform needs give the capacity
+    that holds them all."""
+    caps = [max(2 * current, 256)]
+    while caps[-1] < MAX_CAPACITY:
+        caps.append(caps[-1] * 2)
+    caps = np.minimum(caps, MAX_CAPACITY)
+    holds = caps[np.searchsorted(caps, np.minimum(need, MAX_CAPACITY))]
+
+    def work(cap: int) -> int:
+        taken = holds <= cap
+        k = int(taken.sum())
+        return ((n if k > n // 2 else 2 * k) * cap
+                + 2 * int(holds[~taken].sum()))
+
+    # min keeps the first of equal works: the largest, scanned first
+    return min(reversed(caps.tolist()), key=work)
 
 
 def collect(
@@ -446,10 +475,12 @@ def collect(
     With ``strict`` (default), a pass that hits table-capacity,
     join-multiplicity or vote-radius overflow re-runs with escalated
     limits until the results are provably exhaustive.  Capacity
-    escalation jumps straight to the measured keypoint maximum; join
-    escalation walks multiplicity 4x then dense; only flagged pairs
-    re-match when they are a minority; ``overflow_frames`` counts the
-    pairs left inexact when the ladder gives up."""
+    escalation jumps to the capacity the flagged pairs' measured keypoint
+    counts call for (:func:`_rung_capacity`), leaving the few that need
+    more to a later rung; join escalation walks multiplicity 4x then
+    dense; only flagged pairs re-match when they are a minority;
+    ``overflow_frames`` counts the pairs left inexact when the ladder
+    gives up."""
     dev = get_device(device)
     empty = CollectResult([], FrameStore(0, 0, device=dev),
                           np.zeros((0, 2), np.int32), np.zeros((0,), bool), 0)
@@ -475,10 +506,9 @@ def collect(
     with profiling.span("collect.pass", device=dev, rung=0,
                         capacity=cfg.region_capacity,
                         multiplicity=cfg.join_multiplicity, replay=False):
-        offsets, matched, tabf, joinf, rangef, kp_need = match_pass(
-            source, layout, cfg, store, dev)
+        offsets, matched, *flags = match_pass(source, layout, cfg, store, dev)
     n = len(offsets)
-    ptab, pjoin, prange = _pair_flags(tabf, joinf, rangef)
+    ptab, pjoin, prange, pneed = _pair_flags(*flags)
 
     ecfg = cfg
     rung = 0
@@ -487,6 +517,8 @@ def collect(
         # Escalate ONLY the limit that tripped, and re-match ONLY the
         # flagged pairs: the stability bounds prove every unflagged
         # declaration equals its exhaustive recomputation.
+        pairs = np.flatnonzero(ptab | pjoin | prange)
+        outliers = 0
         if ptab.any():
             if ecfg.table_mode == "sort2":
                 # sort2's chunk-quota flag is density-based: capacity can
@@ -496,16 +528,15 @@ def collect(
             elif ecfg.region_capacity >= MAX_CAPACITY:
                 break  # give up: caller sees overflow_frames > 0
             else:
-                # count-guided jump: go straight to the power of two that
-                # holds the measured max per-region keypoint count
-                new_cap = max(ecfg.region_capacity * 2, 256)
-                while new_cap < min(kp_need, MAX_CAPACITY):
-                    new_cap *= 2
-                ecfg = dataclasses.replace(
-                    ecfg,
-                    region_capacity=min(new_cap, MAX_CAPACITY),
-                    vote_radius=0,
-                )
+                # count-guided jump to the capacity the flagged pairs'
+                # measured keypoint counts call for; the pairs that need
+                # more stay flagged for a later rung
+                capacity = _rung_capacity(ecfg.region_capacity,
+                                          pneed[pairs], n)
+                left = np.minimum(pneed[pairs], MAX_CAPACITY) > capacity
+                pairs, outliers = pairs[~left], int(left.sum())
+                ecfg = dataclasses.replace(ecfg, region_capacity=capacity,
+                                           vote_radius=0)
         elif pjoin.any():
             # 4x multiplicity, then the exhaustive dense join (0); the
             # table capacity stays put
@@ -534,33 +565,31 @@ def collect(
             # only the vote-histogram radius tripped: retry with exact
             # full-range counting alone
             ecfg = dataclasses.replace(ecfg, vote_radius=0)
-        pairs = np.flatnonzero(ptab | pjoin | prange).tolist()
+        pairs = pairs.tolist()
         b = ecfg.frame_batch
         if len(pairs) > n // 2:
             # majority flagged: a full replay extracts each frame once
-            # where pair repair extracts both endpoints per pair
+            # where pair repair extracts both endpoints per pair; the
+            # outliers overflow the replay's tables, so it flags them again
             with profiling.span("collect.pass", device=dev, rung=rung,
                                 capacity=ecfg.region_capacity,
                                 multiplicity=ecfg.join_multiplicity,
                                 replay=True):
-                offsets, matched, tabf, joinf, rangef, kp_need = match_pass(
+                profiling.count("collect.capacity_outliers", outliers)
+                offsets, matched, *flags = match_pass(
                     StoreReplay(store), layout, ecfg, None, dev)
                 # K1 ran on every batch, the last one padded
                 profiling.count("collect.rematched_frames", -(-n // b) * b)
-            ptab, pjoin, prange = _pair_flags(tabf, joinf, rangef)
+            ptab, pjoin, prange, pneed = _pair_flags(*flags)
         else:
             with profiling.span("collect.repair", device=dev, rung=rung,
                                 pairs=len(pairs),
                                 capacity=ecfg.region_capacity):
-                rtab, rjoin, rrange, kp_need = repair_pairs(
-                    pairs, store, layout, ecfg, offsets, matched)
-                # both endpoints of every padded chunk
-                profiling.count("collect.rematched_frames",
-                                2 * -(-len(pairs) // b) * b)
-            ptab[:] = pjoin[:] = prange[:] = False
-            ptab[pairs] = rtab
-            pjoin[pairs] = rjoin
-            prange[pairs] = rrange
+                profiling.count("collect.capacity_outliers", outliers)
+                (ptab[pairs], pjoin[pairs], prange[pairs],
+                 pneed[pairs]) = repair_pairs(pairs, store, layout, ecfg,
+                                              offsets, matched)
+                profiling.count("collect.rematched_frames", 2 * len(pairs))
 
     segments = segment_positions(offsets, matched)
     with profiling.span("collect.blit"):

@@ -92,18 +92,20 @@ def test_batch_and_drain_depth_invariance(batch, depth):
 @pytest.fixture()
 def ladder(monkeypatch):
     """Records (kind, capacity, multiplicity, vote radius, frame batch,
-    pairs) for each pass the port's strict ladder runs."""
+    number of pairs, the pairs) for each pass the port's strict ladder
+    runs."""
     calls = []
     real_pass, real_repair = tcollect.match_pass, tcollect.repair_pairs
 
     def counting_pass(frames, layout, cfg, store=None, device=None):
         calls.append(("pass", cfg.region_capacity, cfg.join_multiplicity,
-                      cfg.vote_radius, cfg.frame_batch, None))
+                      cfg.vote_radius, cfg.frame_batch, None, None))
         return real_pass(frames, layout, cfg, store, device)
 
     def counting_repair(pairs, store, layout, cfg, offsets, matched):
         calls.append(("repair", cfg.region_capacity, cfg.join_multiplicity,
-                      cfg.vote_radius, cfg.frame_batch, len(pairs)))
+                      cfg.vote_radius, cfg.frame_batch, len(pairs),
+                      list(pairs)))
         return real_repair(pairs, store, layout, cfg, offsets, matched)
 
     monkeypatch.setattr(tcollect, "match_pass", counting_pass)
@@ -177,6 +179,101 @@ def test_capacity_escalation_jumps_to_measured_count(ladder):
     assert got.overflow_frames == 0
     caps = [c[1] for c in ladder]
     assert caps[0] == 128 and len(caps) == 2 and caps[1] >= 1024, ladder
+
+
+@pytest.mark.parametrize("clip", ["break", "uniform"])
+def test_capacity_rung_takes_what_its_pairs_need(clip, ladder, recorded):
+    """A capacity rung escalates to the capacity its flagged pairs need,
+    not to the densest frame's.  ``_break_frames`` needs at most 385
+    keypoints a region in its ordinary frames and 1,216 in its noise
+    frame (7): from capacity 128 the clip replays at 512 and only the
+    noise frame's two pairs are repaired, at 2048, leaving two outliers
+    to the repair.  Its first seven frames alone (uniform needs) replay
+    once at 512 with no outlier.  The result equals the JAX package's
+    collect and an exhaustive run (the dense join, exact counting, at the
+    clip's largest need: no table cut, no flag raised)."""
+    frames = _break_frames() if clip == "break" else _break_frames()[:7]
+    cfg = dataclasses.replace(CFG, region_capacity=128)
+    got, record = recorded(frames, cfg)
+    rungs = [(c[0], c[1], c[6]) for c in ladder]
+    want_rungs = [("pass", 128, None), ("pass", 512, None)]
+    if clip == "break":
+        want_rungs.append(("repair", 2048, [7, 8]))
+    assert rungs == want_rungs
+    assert record.counters["collect.capacity_outliers"] == (
+        2 if clip == "break" else 0)
+    assert record.counters["collect.rematched_frames"] == (
+        16 + 4 if clip == "break" else 8)
+    assert got.overflow_frames == 0
+    got = convert.collect_result_to_numpy(got)
+    _assert_host_equal(got, convert.collect_result_to_numpy(
+        jcollect.collect(frames, jax_twin(cfg))))
+    layout = make_layout(96, 64, cfg.grid_width, cfg.grid_height,
+                         cfg.grid_overlap)
+    tables, _ = tmodels.GridVote(layout, cfg).features(
+        torch.from_numpy(np.stack(frames)))
+    need = int(tmodels.grid_vote.kp_need(tables).max())
+    assert need == (1216 if clip == "break" else 365)
+    exhaustive = dataclasses.replace(cfg, region_capacity=need,
+                                     join_multiplicity=0, vote_radius=0)
+    ref = tcollect.collect(frames, exhaustive, strict=False, device="cpu")
+    assert ref.overflow_frames == 0
+    _assert_host_equal(got, convert.collect_result_to_numpy(ref))
+
+
+@pytest.mark.parametrize("current,needs,n,want", [
+    # c64_map_break: 2,045 flagged pairs need 3,349-3,528, the noise
+    # frame's two 11,197; the replay at 4096, then the two at 16384
+    (512, [3528] * 2045 + [11197] * 2, 2048, 4096),
+    (4096, [11197] * 2, 2048, 16384),
+    # c64_map_clean: uniform needs, one replay that holds them all
+    (512, [3528] * 2047, 2048, 4096),
+    # a lone pair: repaired at once at the capacity that holds it
+    (128, [1216], 14, 2048),
+    # needs past the largest capacity count as held by it: left to a
+    # later rung, then taken there (where they give up)
+    (4096, [3000] * 10 + [40000] * 2, 12, 8192),
+    (8192, [40000] * 2, 12, 16384),
+    # a capacity that is no power of two doubles to MAX_CAPACITY
+    (3000, [7000] * 9, 10, 12000),
+])
+def test_rung_capacity_reckons_the_work(current, needs, n, want):
+    assert tcollect._rung_capacity(current, np.array(needs, np.int32),
+                                   n) == want
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+def test_repair_chunk_smaller_than_its_batch_matches_a_padded_one(batch):
+    """``repair_pairs`` sizes its last chunk to the pairs left: three
+    pairs (the noise frame's two and an ordinary one, every table
+    overflowing at capacity 128) give what the pair step gives them in
+    a batch padded to ``frame_batch`` with copies of the last pair:
+    offsets, matched flags, the three flags and each pair's need."""
+    frames = _break_frames()
+    cfg = dataclasses.replace(CFG, region_capacity=128, frame_batch=batch)
+    res = tcollect.collect(frames, cfg, strict=False, device="cpu")
+    layout = make_layout(96, 64, cfg.grid_width, cfg.grid_height,
+                         cfg.grid_overlap)
+    pairs = [3, 7, 8]
+    offsets, matched = res.offsets.copy(), res.matched.copy()
+    flags = tcollect.repair_pairs(pairs, res.store, layout, cfg, offsets,
+                                  matched)
+
+    imgs = torch.from_numpy(np.stack(frames))
+    step = tcollect.make_pair_step(layout, cfg)
+    rows = []
+    for i in range(0, len(pairs), batch):
+        chunk = pairs[i:i + batch]
+        pad = chunk + [chunk[-1]] * (batch - len(chunk))
+        rows.append(step(imgs[[t - 1 for t in pad]],
+                         imgs[pad]).numpy()[:len(chunk)])
+    off, ok, *want = tcollect.split_step_scalars(np.concatenate(rows))
+    assert want[0].all() and want[3].max() == 1216
+    np.testing.assert_array_equal(matched[pairs], ok)
+    np.testing.assert_array_equal(offsets[pairs],
+                                  np.where(ok[:, None], off, 0))
+    for g, w in zip(flags, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_stitcher_matches_jax():
