@@ -259,7 +259,10 @@ def _match(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
     >= K``).  The correlation families align the pad state's canvases (the
     zero padding is masked out, so offsets are exact).  Recorded as a
     ``splice.match`` span with the multiplicity it ended at and the
-    accepted count."""
+    accepted count; a match not accepted adds to the counter
+    ``splice.rejects``.  Under grid_vote the host's multiplicity estimate
+    is a ``splice.need`` span, and each call of the cellular matcher a
+    ``splice.vote`` span with CUDA events on the tables' device."""
     with profiling.span("splice.match") as sp:
         profiling.count("splice.matches")
         if pad is None:
@@ -275,6 +278,7 @@ def _match(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
             res, mult = _match_tables(head, other, cfg, pad)
             sp.set(multiplicity=mult)
         if not bool(res.ok):
+            profiling.count("splice.rejects")
             return None
         count = int(res.count)
         sp.set(count=count)
@@ -290,15 +294,17 @@ def _match_tables(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
     o_tabs = _padded_tables(other, k)
     mask = pad.mask(head)
     mult = cfg.join_multiplicity
-    est = _needed_multiplicity(head, other)
+    with profiling.span("splice.need"):
+        est = _needed_multiplicity(head, other)
     if est > mult:
         nm = 1 << (est - 1).bit_length()
         mult = 0 if 4 * nm >= k else nm
     while True:
-        res = splice_ops.match_fragments(
-            *h_tabs, *o_tabs, mask, head.dims, other.dims,
-            cell_w=cfg.splice_cell[0], cell_h=cfg.splice_cell[1],
-            ratio=cfg.splice_cell_ratio, multiplicity=mult)
+        with profiling.span("splice.vote", device=mask.device):
+            res = splice_ops.match_fragments(
+                *h_tabs, *o_tabs, mask, head.dims, other.dims,
+                cell_w=cfg.splice_cell[0], cell_h=cfg.splice_cell[1],
+                ratio=cfg.splice_cell_ratio, multiplicity=mult)
         if not bool(res.overflow) or mult == 0:
             return res, mult
         needed = int(res.needed_multiplicity)
@@ -399,6 +405,7 @@ def splice(fragments: List[Fragment], cfg: PipelineConfig,
         assert fragments[0].store is not None
         frame_dims = (fragments[0].store.width, fragments[0].store.height)
 
+    profiling.count("splice.fragments", len(fragments))
     with profiling.span("splice.extract"):
         snippets = _extract_snippets(fragments, cfg, device, devices)
     pad = _PadState()
@@ -419,6 +426,7 @@ def splice(fragments: List[Fragment], cfg: PipelineConfig,
         left, edge = best
         right = edge.other
 
+        profiling.count("splice.merges")
         with profiling.span("splice.merge"):
             merged_frag = merge_fragments(left.fragment, right.fragment,
                                           edge.offset, frame_dims)

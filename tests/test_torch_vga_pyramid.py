@@ -206,7 +206,8 @@ def test_harness_finds_the_cell():
         "window_ms.map", "collect_ms.map", "splice_ms.map",
         "foreground_ms.map", "clean_ms.map", "idle_share.map",
         "peak_gib.map", "first_pass_ms.map", "batch_prep_ms.map",
-        "drain_wait_ms.map", "splice_match_ms.map"} | set(READERS)
+        "drain_wait_ms.map", "splice_match_ms.map", "splice_matches.map",
+        "splice_merges.map"} | set(READERS)
     for name in READERS:
         entry = next(m for m in bench["per_layer"] if m["name"] == name)
         assert (entry["layer"], entry["moves"], entry["workloads"]) == (
