@@ -28,7 +28,7 @@ Order contracts kept from the JAX package:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -159,7 +159,8 @@ def _missed(rows: _SortedRows, pair: torch.Tensor):
 
 
 def _join_slots(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel,
-                multiplicity: int, coord_limit: int, curr: bool = False):
+                multiplicity: int, coord_limit: int, curr: bool = False,
+                rows: Optional[_SortedRows] = None):
     """Batched ``remap_tpu.ops.kpm._join_slots`` over ``[N, K]`` tables.
 
     Returns (dx [N, m, 2K], dy [N, m, 2K], pair [N, m, 2K],
@@ -169,10 +170,12 @@ def _join_slots(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel,
     coordinates and the smallest multiplicity that enumerates every pair.
     The JAX scan splits the coordinate into bit fields only to keep its
     pack inside int32; the int64 pack here needs no split, so one
-    function serves both."""
+    function serves both.  ``rows``: the tables' :func:`_sorted_rows`,
+    sorted already (they do not depend on the multiplicity)."""
     m = multiplicity
     lim = coord_limit + 2
-    rows = _sorted_rows(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel)
+    if rows is None:
+        rows = _sorted_rows(p_codes, p_pos, p_valid, c_codes, c_pos, c_sel)
     spx, spy = rows.spx, rows.spy
 
     # the j-th partner of every curr row of a run is the run's j-th prev

@@ -12,18 +12,22 @@ The JAX two-key ``lax.sort((okey, ckey), num_keys=2)`` is one sort of the
 int64 key ``okey * C + ckey`` here, with ``C`` above every cell key; pairs
 the join did not enumerate take cell key 0, so the sentinel offset's
 entries sort last as they do in JAX.  ``torch.argmax`` returns the first
-maximal index, so ties still go to the smallest offset key.  Plain tensor
-code (the JAX package runs it in XLA, outside any Pallas kernel), the same
-on both devices.
+maximal index, so ties still go to the smallest offset key.
+:func:`sort_tables` runs the slot join's code sort on its own and gives
+the pair's needed multiplicity from it, so a caller can size the join
+from the card and hand the same rows to :func:`match_fragments`.  Plain
+tensor code (the JAX package runs it in XLA, outside any Pallas kernel),
+the same on both devices.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from remap_tpu_torch.ops.kpm import _join_dense, _join_slots
+from remap_tpu_torch.ops.kpm import (_join_dense, _join_slots, _sorted_rows,
+                                     _SortedRows)
 
 
 class CellMatch(NamedTuple):
@@ -33,6 +37,24 @@ class CellMatch(NamedTuple):
     overflow: torch.Tensor   # [] bool
     #: [] int64 — the smallest multiplicity that enumerates every pair
     needed_multiplicity: torch.Tensor
+
+
+class SortedTables(NamedTuple):
+    rows: _SortedRows        # [1, 2K] both tables' rows in join order
+    #: [] int64 — the most prev rows sharing a code with one curr row
+    need: torch.Tensor
+
+
+def sort_tables(p_codes, p_pos, p_valid, c_codes, c_pos,
+                c_valid) -> SortedTables:
+    """The slot join's code sort of two snippet tables and the pair's
+    needed multiplicity, the value :func:`match_fragments` reports as
+    ``needed_multiplicity`` (the rows do not depend on the
+    multiplicity)."""
+    rows = _sorted_rows(p_codes[None], p_pos[None], p_valid[None],
+                        c_codes[None], c_pos[None], c_valid[None])
+    return SortedTables(
+        rows, torch.where(rows.is_curr, rows.n_prev, 0).amax())
 
 
 def _floordiv(a, b):
@@ -55,9 +77,12 @@ def match_fragments(
     cell_h: int = 15,
     ratio: float = 0.66,
     multiplicity: int = 8,
+    rows: Optional[_SortedRows] = None,
 ) -> CellMatch:
     """The cellular match of two snippet tables (``remap_tpu.ops.splice.
-    match_fragments``); ``multiplicity=0`` is the exhaustive dense join."""
+    match_fragments``); ``multiplicity=0`` is the exhaustive dense join.
+    ``rows``: the tables' :func:`sort_tables` rows, which the slot join
+    then does not sort again (the dense join takes none)."""
     hb, wb = p_mask.shape
     dev = p_codes.device
     args = (p_codes[None], p_pos[None], p_valid[None],
@@ -68,7 +93,7 @@ def match_fragments(
         out = _join_slots(*args, multiplicity,
                           coord_limit=max(8192, 1 << (max(hb, wb) - 1)
                                           .bit_length()),
-                          curr=True)
+                          curr=True, rows=rows)
     dx, dy, pair, n_missed, _rows, scx, scy, needed = (t[0] for t in out)
     dx, dy = dx.long(), dy.long()
     scx, scy = scx.long()[None, :], scy.long()[None, :]

@@ -30,7 +30,6 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -79,19 +78,6 @@ class _Snippet:
     edges: List[_Edge] = dataclasses.field(default_factory=list)
     #: [HB, WB] uint8 zero-padded blended canvas (correlation families)
     image_bucket: Optional[torch.Tensor] = None
-    #: (unique valid code rows, their counts), computed once
-    _code_counts: Optional[Tuple[np.ndarray, np.ndarray]] = None
-
-    def code_counts(self) -> Tuple[np.ndarray, np.ndarray]:
-        """The snippet's valid code quadruples as unique void rows with
-        their counts: each snippet pays its host unique once, not once per
-        pair it is matched in."""
-        if self._code_counts is None:
-            codes = self.codes[self.valid].cpu().numpy()
-            void = np.dtype((np.void, codes.dtype.itemsize * 4))
-            rows = np.ascontiguousarray(codes).view(void).ravel()
-            self._code_counts = np.unique(rows, return_counts=True)
-        return self._code_counts
 
 
 def _snippet_dispatch(frag: Fragment, cfg: PipelineConfig, device=None,
@@ -230,15 +216,11 @@ class _PadState:
         return self._padded(s.image_bucket)
 
 
-def _needed_multiplicity(head: _Snippet, other: _Snippet) -> int:
-    """The join's ``needed_multiplicity`` on the host: the most valid
-    ``head`` rows sharing one code quadruple that ``other`` also holds."""
-    uniq, counts = head.code_counts()
-    other_uniq, _ = other.code_counts()
-    if uniq.shape[0] == 0 or other_uniq.shape[0] == 0:
-        return 0
-    present = np.isin(uniq, other_uniq)
-    return int(counts[present].max()) if present.any() else 0
+def _needed_multiplicity(tables: splice_ops.SortedTables) -> int:
+    """The join's ``needed_multiplicity`` of a pair, read from its code
+    sort on the tables' device: the most valid ``head`` rows sharing one
+    code quadruple that ``other`` also holds."""
+    return int(tables.need)
 
 
 def _padded_tables(s: _Snippet, k: int):
@@ -253,16 +235,19 @@ def _match(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
            pad: Optional[_PadState] = None
            ) -> Optional[Tuple[Tuple[int, int], int]]:
     """(offset, count) of an accepted match of ``other`` against ``head``,
-    or None.  Under grid_vote the multiplicity starts at the host-measured
-    need (a power of two), retries once at the join's own measure on
-    overflow, and turns dense where the dense join is no bigger (``4 * m
-    >= K``).  The correlation families align the pad state's canvases (the
-    zero padding is masked out, so offsets are exact).  Recorded as a
+    or None.  Under grid_vote the multiplicity starts at the power of two
+    over the need that the join's own code sort measures, retries at the
+    join's measure on overflow, and turns dense where the dense join is no
+    bigger (``4 * m >= K``).  The correlation families align the pad
+    state's canvases (the zero padding is masked out, so offsets are
+    exact).  Recorded as a
     ``splice.match`` span with the multiplicity it ended at and the
     accepted count; a match not accepted adds to the counter
-    ``splice.rejects``.  Under grid_vote the host's multiplicity estimate
-    is a ``splice.need`` span, and each call of the cellular matcher a
-    ``splice.vote`` span with CUDA events on the tables' device."""
+    ``splice.rejects``.  Under grid_vote the code sort and the read of the
+    need are a ``splice.need`` span, and each call of the cellular matcher
+    a ``splice.vote`` span, both with CUDA events on the tables' device;
+    counters ``splice.jumps`` (matches whose need raised the
+    multiplicity) and ``splice.retries`` (overflow retries)."""
     with profiling.span("splice.match") as sp:
         profiling.count("splice.matches")
         if pad is None:
@@ -288,15 +273,19 @@ def _match(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
 def _match_tables(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
                   pad: _PadState):
     """The cellular matcher's result on the pad state's tables, and the
-    multiplicity it ended at."""
+    multiplicity it ended at.  The tables are sorted once, before the
+    join: the sort gives the need, and every join of the match takes its
+    rows."""
     k = pad.cap
     h_tabs = _padded_tables(head, k)
     o_tabs = _padded_tables(other, k)
     mask = pad.mask(head)
     mult = cfg.join_multiplicity
-    with profiling.span("splice.need"):
-        est = _needed_multiplicity(head, other)
+    with profiling.span("splice.need", device=mask.device):
+        tables = splice_ops.sort_tables(*h_tabs, *o_tabs)
+        est = _needed_multiplicity(tables)
     if est > mult:
+        profiling.count("splice.jumps")
         nm = 1 << (est - 1).bit_length()
         mult = 0 if 4 * nm >= k else nm
     while True:
@@ -304,9 +293,11 @@ def _match_tables(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
             res = splice_ops.match_fragments(
                 *h_tabs, *o_tabs, mask, head.dims, other.dims,
                 cell_w=cfg.splice_cell[0], cell_h=cfg.splice_cell[1],
-                ratio=cfg.splice_cell_ratio, multiplicity=mult)
+                ratio=cfg.splice_cell_ratio, multiplicity=mult,
+                rows=tables.rows)
         if not bool(res.overflow) or mult == 0:
             return res, mult
+        profiling.count("splice.retries")
         needed = int(res.needed_multiplicity)
         nm = max(2 * mult, 2)
         while nm < needed:

@@ -153,6 +153,9 @@ def test_splice_counts_and_spans(built):
     # the next against the 1 left; only the two same-area pairs accepted
     assert (c["splice.fragments"], c["splice.merges"]) == (4, 2)
     assert (c["splice.matches"], c["splice.rejects"]) == (9, 7)
+    # the need is the join's own, so no join overflows its multiplicity
+    assert c.get("splice.retries", 0) == 0
+    assert c.get("splice.jumps", 0) <= c["splice.matches"]
     matches = {s.id for s in record.spans if s.name == "splice.match"}
     for name in ("splice.need", "splice.vote"):
         found = [s for s in record.spans if s.name == name]

@@ -1,8 +1,9 @@
 """Port splice stage (remap_tpu_torch.ops.splice, pipeline.splice) vs the
 JAX package, exact: the slot join's splice outputs, the cellular matcher
-in its slot and dense forms, the bucketed snippet tables, the host
-multiplicity estimate, the multiplicities ``_match`` walks, canvas merges
-and whole ``splice()`` runs (fragments compared through ``convert``)."""
+in its slot and dense forms, the bucketed snippet tables, the need read
+from the join's code sort, the multiplicities ``_match`` walks, canvas
+merges and whole ``splice()`` runs (fragments compared through
+``convert``)."""
 
 import dataclasses
 
@@ -217,6 +218,8 @@ def test_bucketed_snippet_equals_exact_canvas_and_jax():
 
 @pytest.mark.parametrize("trial", range(4))
 def test_needed_multiplicity_matches_jax(trial):
+    """The need read from the join's code sort equals the JAX package's
+    host estimate and the slot join's own ``needed_m``."""
     codes, pos, valid = _repeated_tables(90 + trial)
 
     class T:
@@ -225,19 +228,39 @@ def test_needed_multiplicity_matches_jax(trial):
     jh, jo = T(), T()
     jh.codes, jh.valid = codes[0], valid[0]
     jo.codes, jo.valid = codes[1], valid[1]
-    th = tsplice._Snippet(None, None, None, to_torch(codes[0]),
-                          to_torch(pos[0]), to_torch(valid[0]))
-    to = tsplice._Snippet(None, None, None, to_torch(codes[1]),
-                          to_torch(pos[1]), to_torch(valid[1]))
     want = jsplice._needed_multiplicity(jh, jo)
-    assert tsplice._needed_multiplicity(th, to) == want
-    join = tkpm._join_slots(*(t[None] for t in (
-        th.codes, th.pos, th.valid, to.codes, to.pos, to.valid)), 4,
-        coord_limit=8192, curr=True)
+    tabs = [to_torch(t[i]) for i in range(2) for t in (codes, pos, valid)]
+    tables = tsplice_ops.sort_tables(*tabs)
+    assert tables.need.dim() == 0
+    assert tsplice._needed_multiplicity(tables) == want
+    join = tkpm._join_slots(*(t[None] for t in tabs), 4, coord_limit=8192,
+                            curr=True)
     assert int(join[7][0]) == want
-    # the counts are cached per snippet, not per pair
-    assert th._code_counts is not None
-    assert tsplice._needed_multiplicity(th, to) == want
+
+
+@pytest.mark.parametrize("at", ["under", "need", "dense"])
+def test_match_fragments_takes_sorted_rows(at):
+    """``match_fragments`` on rows sorted by ``sort_tables`` equals its own
+    sort: a multiplicity under the need (overflow), at it, and dense."""
+    a, ma, b, _ = _setup("stamps")
+    ta, tb = _snippet_tables(a, 2048), _snippet_tables(b, 2048)
+    tabs = [to_torch(t) for t in ta + tb]
+    tables = tsplice_ops.sort_tables(*tabs)
+    need = int(tables.need)
+    assert need > 1
+    m = {"under": 1, "need": need, "dense": 0}[at]
+    args = (*tabs, to_torch(_mask_bucket(ma)), (a.shape[1], a.shape[0]),
+            (b.shape[1], b.shape[0]))
+    want = tsplice_ops.match_fragments(*args, multiplicity=m)
+    got = tsplice_ops.match_fragments(*args, multiplicity=m,
+                                      rows=tables.rows)
+    for name in ("offset", "count", "ok", "overflow", "needed_multiplicity"):
+        np.testing.assert_array_equal(
+            to_numpy(getattr(got, name)), to_numpy(getattr(want, name)),
+            err_msg=name)
+    assert bool(got.overflow) == (at == "under")
+    if m:
+        assert int(got.needed_multiplicity) == need
 
 
 def _both_snippets(a, ma, b, mb, cfg):
@@ -259,7 +282,7 @@ def _both_snippets(a, ma, b, mb, cfg):
 @pytest.mark.parametrize("case", ["plain", "jump", "retry"])
 def test_match_walks_jax_multiplicities(case, monkeypatch):
     """The multiplicities ``_match`` runs the matcher at, recorded on both
-    sides: the default, the host-measured jump, and (with the estimate
+    sides: the default, the jump to the measured need, and (with the need
     forced to 0) the overflow retry at the join's own measure."""
     a, ma, b, mb = _setup("overlap" if case == "plain" else "stamps")
     cfg = dataclasses.replace(CFG, join_multiplicity=1)
@@ -279,7 +302,7 @@ def test_match_walks_jax_multiplicities(case, monkeypatch):
     recorder(tsplice.splice_ops, "port")
     if case == "retry":
         monkeypatch.setattr(jsplice, "_needed_multiplicity", lambda h, o: 0)
-        monkeypatch.setattr(tsplice, "_needed_multiplicity", lambda h, o: 0)
+        monkeypatch.setattr(tsplice, "_needed_multiplicity", lambda t: 0)
     want = jsplice._match(jh, jo, jax_twin(cfg))
     got = tsplice._match(th, to, cfg)
     assert got == want
