@@ -116,6 +116,26 @@ def main(argv=None) -> int:
             dist.destroy_process_group()
 
 
+def pipeline_config(args) -> PipelineConfig:
+    """The pipeline's settings that the parsed arguments ``args`` ask
+    for."""
+    return PipelineConfig(
+        screen_width=args.width,
+        screen_height=args.height,
+        matcher=args.matcher,
+        match=MatchConfig(weight_switch=args.weight_switch,
+                          region_votes=args.region_votes),
+        artifact_filter_dev=args.artifact_dev,
+        artifact_filter_size=args.artifact_size,
+        frame_batch=args.frame_batch,
+        region_capacity=args.region_capacity,
+        vote_radius=args.vote_radius,
+        splice_capacity=args.splice_capacity,
+        discovery=args.discovery,
+        frame_store=args.frame_store,
+    )
+
+
 def _run(args) -> int:
     if args.palette != "c64":
         from remap_tpu_torch.core import palette
@@ -145,21 +165,7 @@ def _run(args) -> int:
         print(f"{e} (--cpu runs on the CPU)", file=sys.stderr)
         return 1
 
-    cfg = PipelineConfig(
-        screen_width=args.width,
-        screen_height=args.height,
-        matcher=args.matcher,
-        match=MatchConfig(weight_switch=args.weight_switch,
-                          region_votes=args.region_votes),
-        artifact_filter_dev=args.artifact_dev,
-        artifact_filter_size=args.artifact_size,
-        frame_batch=args.frame_batch,
-        region_capacity=args.region_capacity,
-        vote_radius=args.vote_radius,
-        splice_capacity=args.splice_capacity,
-        discovery=args.discovery,
-        frame_store=args.frame_store,
-    )
+    cfg = pipeline_config(args)
 
     try:
         if args.format == "raw":

@@ -435,6 +435,19 @@ def _pair_flags(tabf: np.ndarray, joinf: np.ndarray, rangef: np.ndarray,
     return ptab, joinf, rangef, pneed
 
 
+def _count_flags(ptab: np.ndarray, pjoin: np.ndarray,
+                 prange: np.ndarray) -> None:
+    """Count, in the open span, the pairs each limit leaves flagged, each
+    pair once under the first limit the ladder would take for it: table
+    capacity, then join multiplicity, then vote radius.  The three
+    counters add up to the flagged pairs, and are counted even at 0."""
+    join = pjoin & ~ptab
+    profiling.count("collect.table_flagged", int(ptab.sum()))
+    profiling.count("collect.join_flagged", int(join.sum()))
+    profiling.count("collect.range_flagged",
+                    int((prange & ~ptab & ~join).sum()))
+
+
 def _rung_capacity(current: int, need: np.ndarray, n: int) -> int:
     """The table capacity a capacity rung escalates to, from the flagged
     pairs' keypoint needs ``need`` in a clip of ``n`` frames: of the
@@ -507,8 +520,9 @@ def collect(
                         capacity=cfg.region_capacity,
                         multiplicity=cfg.join_multiplicity, replay=False):
         offsets, matched, *flags = match_pass(source, layout, cfg, store, dev)
+        ptab, pjoin, prange, pneed = _pair_flags(*flags)
+        _count_flags(ptab, pjoin, prange)
     n = len(offsets)
-    ptab, pjoin, prange, pneed = _pair_flags(*flags)
 
     ecfg = cfg
     rung = 0
@@ -520,6 +534,7 @@ def collect(
         pairs = np.flatnonzero(ptab | pjoin | prange)
         outliers = 0
         if ptab.any():
+            limit = "capacity"
             if ecfg.table_mode == "sort2":
                 # sort2's chunk-quota flag is density-based: capacity can
                 # never clear it, so switch to the quota-free topk
@@ -538,6 +553,7 @@ def collect(
                 ecfg = dataclasses.replace(ecfg, region_capacity=capacity,
                                            vote_radius=0)
         elif pjoin.any():
+            limit = "multiplicity"
             # 4x multiplicity, then the exhaustive dense join (0); the
             # table capacity stays put
             if ecfg.join_multiplicity == 0:
@@ -564,6 +580,7 @@ def collect(
         else:
             # only the vote-histogram radius tripped: retry with exact
             # full-range counting alone
+            limit = "radius"
             ecfg = dataclasses.replace(ecfg, vote_radius=0)
         pairs = pairs.tolist()
         b = ecfg.frame_batch
@@ -574,22 +591,26 @@ def collect(
             with profiling.span("collect.pass", device=dev, rung=rung,
                                 capacity=ecfg.region_capacity,
                                 multiplicity=ecfg.join_multiplicity,
-                                replay=True):
+                                replay=True, limit=limit):
                 profiling.count("collect.capacity_outliers", outliers)
                 offsets, matched, *flags = match_pass(
                     StoreReplay(store), layout, ecfg, None, dev)
                 # K1 ran on every batch, the last one padded
                 profiling.count("collect.rematched_frames", -(-n // b) * b)
-            ptab, pjoin, prange, pneed = _pair_flags(*flags)
+                ptab, pjoin, prange, pneed = _pair_flags(*flags)
+                _count_flags(ptab, pjoin, prange)
         else:
             with profiling.span("collect.repair", device=dev, rung=rung,
                                 pairs=len(pairs),
-                                capacity=ecfg.region_capacity):
+                                capacity=ecfg.region_capacity,
+                                multiplicity=ecfg.join_multiplicity,
+                                limit=limit):
                 profiling.count("collect.capacity_outliers", outliers)
                 (ptab[pairs], pjoin[pairs], prange[pairs],
                  pneed[pairs]) = repair_pairs(pairs, store, layout, ecfg,
                                               offsets, matched)
                 profiling.count("collect.rematched_frames", 2 * len(pairs))
+                _count_flags(ptab, pjoin, prange)
 
     segments = segment_positions(offsets, matched)
     with profiling.span("collect.blit"):

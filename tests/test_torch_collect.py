@@ -221,6 +221,40 @@ def test_capacity_rung_takes_what_its_pairs_need(clip, ladder, recorded):
     _assert_host_equal(got, convert.collect_result_to_numpy(ref))
 
 
+FLAGS = ("collect.table_flagged", "collect.join_flagged",
+         "collect.range_flagged")
+
+
+@pytest.mark.parametrize("limit", ["capacity", "multiplicity"])
+def test_rung_spans_name_the_limit_that_tripped(limit, recorded):
+    """Each rung's span records the limit whose branch the ladder took,
+    a repair its multiplicity too, and every pass and repair counts the
+    pairs each limit left flagged, each pair once: ``_break_frames`` at
+    capacity 128 walks the capacity rungs (a replay at 512, then the
+    noise frame's two pairs at 2048), the stripe's tight limits the join
+    rungs (one pair repaired at multiplicity 4, then at 16)."""
+    if limit == "capacity":
+        frames = _break_frames()
+        cfg = dataclasses.replace(CFG, region_capacity=128)
+        want = [("collect.pass", None, 4, (13, 0, 0)),
+                ("collect.pass", "capacity", 4, (2, 0, 0)),
+                ("collect.repair", "capacity", 4, (0, 0, 0))]
+    else:
+        frames, cfg, _ = _stripe_path_frames()
+        want = [("collect.pass", None, 1, (0, 1, 0)),
+                ("collect.repair", "multiplicity", 4, (0, 1, 0)),
+                ("collect.repair", "multiplicity", 16, (0, 0, 0))]
+    got, record = recorded(frames, cfg)
+    assert got.overflow_frames == 0
+    spans = [s for s in record.spans
+             if s.name in ("collect.pass", "collect.repair")]
+    assert [(s.name, s.attrs.get("limit"), s.attrs["multiplicity"],
+             tuple(s.counts[k] for k in FLAGS)) for s in spans] == want
+    assert [s.attrs["rung"] for s in spans] == [0, 1, 2]
+    for k, n in zip(FLAGS, np.sum([w[3] for w in want], axis=0)):
+        assert record.counters[k] == n
+
+
 @pytest.mark.parametrize("current,needs,n,want", [
     # c64_map_break: 2,045 flagged pairs need 3,349-3,528, the noise
     # frame's two 11,197; the replay at 4096, then the two at 16384
