@@ -91,9 +91,10 @@ Phases, each of which raises on failure (non-zero exit):
    maps, equal spliced canvases and frame records; io.png.write_map's
    files decoding (zlib alone) to palette.native_to_rgb of the maps;
    every kernel launched.
-   Printed: each stage's ms, frames/s and peak memory, every splice match
-   (multiplicity, K, slot or dense, ms, peak memory), every snippet's
-   keypoints and capacity, and K2's share of one merge's device work
+   Printed: each stage's ms, frames/s and peak memory, every batch of
+   splice matches (pairs, multiplicity, K, slot or dense, ms, peak
+   memory), every snippet's keypoints and capacity, and K2's share of
+   one merge's device work
    (torch.profiler); K1 and K2 at the merged world canvas's snippet shape
    (1x1 layout, K2 at the count-sized capacity) against their plain
    versions.
@@ -1649,10 +1650,11 @@ def session_world(seed: int = 12) -> np.ndarray:
 
 @contextlib.contextmanager
 def recorded_splice(dev, rungs: list, snippets: list):
-    """Record every cellular match splice runs (multiplicity, table rows K,
-    dense or slot, wall ms, peak device memory) in ``rungs`` and every
-    snippet it extracts (canvas, bucketed canvas, keypoints, capacity) in
-    ``snippets``.  Each match is timed between two synchronisations."""
+    """Record every batch of pairs splice's cellular matcher votes on
+    (pairs, multiplicity, table rows K, dense or slot, wall ms, peak
+    device memory, overflowing pairs) in ``rungs`` and every snippet it
+    extracts (canvas, bucketed canvas, keypoints, capacity) in
+    ``snippets``.  Each batch is timed between two synchronisations."""
     from remap_tpu_torch.pipeline import splice
 
     real_match = splice.splice_ops.match_fragments
@@ -1664,13 +1666,14 @@ def recorded_splice(dev, rungs: list, snippets: list):
         reset_peak(dev)
         t0 = time.perf_counter()
         res = real_match(*args, **kwargs)
-        bool(res.overflow)
+        overflow = int(res.overflow.sum())
         ms = (time.perf_counter() - t0) * 1e3
         mult = kwargs["multiplicity"]
-        rungs.append({"multiplicity": mult, "k": int(args[0].shape[0]),
-                      "form": "dense" if mult == 0 else "slot", "ms": ms,
-                      "peak_mb": peak_mb(dev), "before_mb": before,
-                      "overflow": bool(res.overflow)})
+        pairs, k = args[0].shape[:2]
+        rungs.append({"pairs": int(pairs), "multiplicity": mult,
+                      "k": int(k), "form": "dense" if mult == 0 else "slot",
+                      "ms": ms, "peak_mb": peak_mb(dev), "before_mb": before,
+                      "overflow": overflow})
         return res
 
     def finalize(frag, pend, cfg):
@@ -1988,8 +1991,9 @@ def map_phase(dev, counters: dict, smi: str):
         log(f"splice snippet: canvas {s['canvas']}, bucket {s['bucket']}, "
             f"{s['keypoints']} keypoints, capacity {s['capacity']}, on {smi}")
     for r in rungs:
-        log(f"splice match: multiplicity {r['multiplicity']} ({r['form']}), "
-            f"K={r['k']}, overflow {r['overflow']}, {r['ms']:.1f} ms, peak "
+        log(f"splice batch: {r['pairs']} pairs at multiplicity "
+            f"{r['multiplicity']} ({r['form']}), K={r['k']}, "
+            f"{r['overflow']} overflowing, {r['ms']:.1f} ms, peak "
             + ("not measured" if r["peak_mb"] is None
                else f"{r['peak_mb']:.0f} MiB allocated") + f", on {smi}")
 

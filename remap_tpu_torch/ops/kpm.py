@@ -13,7 +13,8 @@ coordinate packing would overflow) and dense (``_join_dense``,
 ``vote_radius=0`` and the bounded histogram, here an exact integer
 histogram), the Borda swing bound, ``_borda_declare`` and
 ``match_tables``.  Splice's ``_join_slots_scan`` is ``_join_slots`` with
-``curr=True`` over one ``[1, K]`` row (``ops.splice``).
+``curr=True`` over ``[N, K]`` rows, one a fragment pair
+(``ops.splice``).
 
 Order contracts kept from the JAX package:
 

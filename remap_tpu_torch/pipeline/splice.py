@@ -5,10 +5,12 @@ Each fragment is blended and keypoint-extracted with a whole-canvas 1x1
 grid (fgs.hpp:17/80-103: K1 on the canvas padded to 256-multiples, the
 weights cut to the true canvas's interior, then K2 with a capacity sized
 to the keypoint count), matched all-pairs with the cellular matcher
-(``ops.splice``, cells of 15x15, fgs.hpp:119-140), then a host greedy loop
-merges the highest-vote pair (ties -> first in snippet order, then edge
-order, fgs.hpp:142-163), re-extracts the merged snippet (list front),
-re-matches it against the rest, and repeats until no edges remain.
+(``ops.splice``, cells of 15x15, fgs.hpp:119-140; a round's pairs in
+batches, one code sort and one cellular vote a batch), then a host
+greedy loop merges the highest-vote pair (ties -> first in snippet
+order, then edge order, fgs.hpp:142-163), re-extracts the merged snippet
+(list front), re-matches it against the rest, and repeats until no edges
+remain.
 Canvas merges replay fgm's step-quantised growth exactly.
 
 Under the correlation families (``cfg.matcher`` "xcorr" / "pyramid") a
@@ -30,13 +32,14 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from remap_tpu_torch import models
 from remap_tpu_torch.config import PipelineConfig
 from remap_tpu_torch.core.regions import make_layout
-from remap_tpu_torch.device import current
+from remap_tpu_torch.device import current, upload
 from remap_tpu_torch.ops import atlas as atlas_ops
 from remap_tpu_torch.ops import kpe as kpe_ops
 from remap_tpu_torch.ops import splice as splice_ops
@@ -216,11 +219,26 @@ class _PadState:
         return self._padded(s.image_bucket)
 
 
-def _needed_multiplicity(tables: splice_ops.SortedTables) -> int:
-    """The join's ``needed_multiplicity`` of a pair, read from its code
-    sort on the tables' device: the most valid ``head`` rows sharing one
-    code quadruple that ``other`` also holds."""
-    return int(tables.need)
+#: join slots (pairs x multiplicity x 2K sorted rows) that one batched
+#: cellular vote enumerates: 16 pairs at multiplicity 4 and K = 131,072.
+#: A round's pairs run in chunks of as many pairs as fit (at least one),
+#: so the vote's ``[N, m, 2K]`` int64 tensors stay near 128 MB each
+JOIN_SLOTS = 1 << 24
+
+
+def _batch_pairs(multiplicity: int, k: int) -> int:
+    """Pairs one vote at ``multiplicity`` (0: dense, one pair) takes at
+    table capacity ``k`` under :data:`JOIN_SLOTS`."""
+    if multiplicity == 0:
+        return 1
+    return max(1, JOIN_SLOTS // (multiplicity * 2 * k))
+
+
+def _needed_multiplicity(tables: splice_ops.SortedTables) -> List[int]:
+    """The join's ``needed_multiplicity`` of each pair, read from their
+    code sort on the tables' device in one host read: the most valid
+    ``head`` rows sharing one code quadruple that ``other`` also holds."""
+    return tables.need.tolist()
 
 
 def _padded_tables(s: _Snippet, k: int):
@@ -231,37 +249,67 @@ def _padded_tables(s: _Snippet, k: int):
             F.pad(s.valid, (0, extra)))
 
 
+def _stacked(planes: List[torch.Tensor]) -> torch.Tensor:
+    """``planes`` on a new leading axis; one plane repeated (a merge
+    round's head) is expanded, not copied."""
+    if all(p is planes[0] for p in planes):
+        return planes[0][None].expand(len(planes), *planes[0].shape)
+    return torch.stack(planes)
+
+
 def _match(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
            pad: Optional[_PadState] = None
            ) -> Optional[Tuple[Tuple[int, int], int]]:
     """(offset, count) of an accepted match of ``other`` against ``head``,
-    or None.  Under grid_vote the multiplicity starts at the power of two
-    over the need that the join's own code sort measures, retries at the
-    join's measure on overflow, and turns dense where the dense join is no
-    bigger (``4 * m >= K``).  The correlation families align the pad
-    state's canvases (the zero padding is masked out, so offsets are
-    exact).  Recorded as a
-    ``splice.match`` span with the multiplicity it ended at and the
-    accepted count; a match not accepted adds to the counter
-    ``splice.rejects``.  Under grid_vote the code sort and the read of the
-    need are a ``splice.need`` span, and each call of the cellular matcher
-    a ``splice.vote`` span, both with CUDA events on the tables' device;
-    counters ``splice.jumps`` (matches whose need raised the
-    multiplicity) and ``splice.retries`` (overflow retries)."""
-    with profiling.span("splice.match") as sp:
+    or None: :func:`_match_pairs` of the one pair (with a pad state of
+    the two snippets unless ``pad`` is given)."""
+    if pad is None:
+        pad = _PadState()
+        pad.update([head, other])
+    return _match_pairs([(head, other)], cfg, pad)[0]
+
+
+def _match_pairs(pairs: List[Tuple[_Snippet, _Snippet]], cfg: PipelineConfig,
+                 pad: _PadState
+                 ) -> List[Optional[Tuple[Tuple[int, int], int]]]:
+    """(offset, count) of each accepted match of ``other`` against
+    ``head`` among ``pairs``, else None, in the pairs' order.  Under
+    grid_vote the pairs are matched in chunks of :func:`_batch_pairs` at
+    ``cfg.join_multiplicity`` (:func:`_match_tables`); the correlation
+    families align each pair's pad-state canvases on their own (the zero
+    padding is masked out, so offsets are exact).  Each chunk (each pair,
+    under a correlation family) is a ``splice.match`` span with its
+    ``pairs``, under grid_vote also the ``multiplicity`` the joins ended
+    at (the largest, 0 where one went dense); counter ``splice.matches``
+    counts pairs, ``splice.rejects`` the matches not accepted."""
+    if models.family(cfg).canvas_matcher is not None:
+        return [_match_canvases(h, o, cfg, pad) for h, o in pairs]
+    step = _batch_pairs(cfg.join_multiplicity, pad.cap)
+    votes = []
+    for i in range(0, len(pairs), step):
+        chunk = pairs[i:i + step]
+        with profiling.span("splice.match", pairs=len(chunk)) as sp:
+            profiling.count("splice.matches", len(chunk))
+            rows, mults = _match_tables(chunk, cfg, pad)
+            sp.set(multiplicity=0 if 0 in mults else max(mults))
+            for ok, count, dx, dy in rows:
+                if not ok:
+                    profiling.count("splice.rejects")
+                votes.append(((dx, dy), count) if ok else None)
+    return votes
+
+
+def _match_canvases(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
+                    pad: _PadState
+                    ) -> Optional[Tuple[Tuple[int, int], int]]:
+    """One pair through the family's canvas matcher, a ``splice.match``
+    span of its own (with the accepted count)."""
+    with profiling.span("splice.match", pairs=1) as sp:
         profiling.count("splice.matches")
-        if pad is None:
-            pad = _PadState()
-            pad.update([head, other])
-        canvas_match = models.family(cfg).canvas_matcher
-        if canvas_match is not None:
-            res = canvas_match(pad.image(head), pad.mask(head),
-                               pad.image(other), pad.mask(other),
-                               min_overlap=cfg.splice_min_overlap,
-                               ratio=cfg.splice_xcorr_ratio)
-        else:
-            res, mult = _match_tables(head, other, cfg, pad)
-            sp.set(multiplicity=mult)
+        res = models.family(cfg).canvas_matcher(
+            pad.image(head), pad.mask(head), pad.image(other),
+            pad.mask(other), min_overlap=cfg.splice_min_overlap,
+            ratio=cfg.splice_xcorr_ratio)
         if not bool(res.ok):
             profiling.count("splice.rejects")
             return None
@@ -270,45 +318,94 @@ def _match(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
         return tuple(int(v) for v in res.offset.tolist()), count
 
 
-def _match_tables(head: _Snippet, other: _Snippet, cfg: PipelineConfig,
-                  pad: _PadState):
-    """The cellular matcher's result on the pad state's tables, and the
-    multiplicity it ended at.  The tables are sorted once, before the
-    join: the sort gives the need, and every join of the match takes its
-    rows."""
+def _match_tables(pairs: List[Tuple[_Snippet, _Snippet]],
+                  cfg: PipelineConfig, pad: _PadState):
+    """The cellular matcher on the pad state's tables of ``pairs``: each
+    pair's (ok, count, dx, dy) and the multiplicity it ended at.  The
+    pairs' tables are sorted once, in one batch, before any join: the
+    sort gives each pair's need (one host read, a ``splice.need`` span),
+    and every join takes its rows.  Pairs whose need passes
+    ``cfg.join_multiplicity`` run at the power of two over it (counter
+    ``splice.jumps``), or dense where that join is no smaller
+    (``4 * m >= K``); the pairs at one multiplicity are voted on together
+    in chunks of :func:`_batch_pairs`, each a ``splice.vote`` span whose
+    results come back in one host read.  A pair whose join still
+    overflows retries alone at the join's own measure (counter
+    ``splice.retries``); counter ``splice.batches`` counts every vote,
+    retries included.  Both spans record CUDA events on the tables'
+    device."""
     k = pad.cap
-    h_tabs = _padded_tables(head, k)
-    o_tabs = _padded_tables(other, k)
-    mask = pad.mask(head)
-    mult = cfg.join_multiplicity
-    with profiling.span("splice.need", device=mask.device):
+    n = len(pairs)
+    # each snippet padded once, so a repeated head stacks as one plane
+    tabs, masks = {}, {}
+    for h, o in pairs:
+        for s in (h, o):
+            if id(s) not in tabs:
+                tabs[id(s)] = _padded_tables(s, k)
+        if id(h) not in masks:
+            masks[id(h)] = pad.mask(h)
+    h_tabs = [_stacked([tabs[id(h)][i] for h, _ in pairs]) for i in range(3)]
+    o_tabs = [_stacked([tabs[id(o)][i] for _, o in pairs]) for i in range(3)]
+    mask = _stacked([masks[id(h)] for h, _ in pairs])
+    dev = mask.device
+    dims = upload(np.array([[h.dims, o.dims] for h, o in pairs]), dev)
+    with profiling.span("splice.need", device=dev):
         tables = splice_ops.sort_tables(*h_tabs, *o_tabs)
-        est = _needed_multiplicity(tables)
-    if est > mult:
-        profiling.count("splice.jumps")
-        nm = 1 << (est - 1).bit_length()
-        mult = 0 if 4 * nm >= k else nm
-    while True:
-        with profiling.span("splice.vote", device=mask.device):
+        needs = _needed_multiplicity(tables)
+
+    def vote(idx: List[int], mult: int):
+        every = len(idx) == n
+        sel = None if every else upload(np.array(idx), dev)
+
+        def take(t):
+            return t if every else t.index_select(0, sel)
+
+        rows = type(tables.rows)(*(take(t) for t in tables.rows))
+        profiling.count("splice.batches")
+        with profiling.span("splice.vote", device=dev):
             res = splice_ops.match_fragments(
-                *h_tabs, *o_tabs, mask, head.dims, other.dims,
+                *(take(t) for t in h_tabs + o_tabs), take(mask),
+                take(dims[:, 0]), take(dims[:, 1]),
                 cell_w=cfg.splice_cell[0], cell_h=cfg.splice_cell[1],
-                ratio=cfg.splice_cell_ratio, multiplicity=mult,
-                rows=tables.rows)
-        if not bool(res.overflow) or mult == 0:
-            return res, mult
-        profiling.count("splice.retries")
-        needed = int(res.needed_multiplicity)
-        nm = max(2 * mult, 2)
-        while nm < needed:
-            nm *= 2
-        mult = 0 if 4 * nm >= k else nm
+                ratio=cfg.splice_cell_ratio, multiplicity=mult, rows=rows)
+            # ok, count, dx, dy, overflow, need: one host read
+            return torch.stack(
+                [res.ok.long(), res.count, res.offset[:, 0],
+                 res.offset[:, 1], res.overflow.long(),
+                 res.needed_multiplicity.long()], dim=1).tolist()
+
+    mults = []
+    for est in needs:
+        mult = cfg.join_multiplicity
+        if est > mult:
+            profiling.count("splice.jumps")
+            nm = 1 << (est - 1).bit_length()
+            mult = 0 if 4 * nm >= k else nm
+        mults.append(mult)
+    out: List[list] = [[] for _ in range(n)]
+    for mult in dict.fromkeys(mults):
+        group = [i for i in range(n) if mults[i] == mult]
+        step = _batch_pairs(mult, k)
+        for j in range(0, len(group), step):
+            idx = group[j:j + step]
+            for i, row in zip(idx, vote(idx, mult)):
+                out[i] = row
+    for i in range(n):
+        while out[i][4] and mults[i] != 0:
+            profiling.count("splice.retries")
+            needed, nm = out[i][5], max(2 * mults[i], 2)
+            while nm < needed:
+                nm *= 2
+            mults[i] = 0 if 4 * nm >= k else nm
+            out[i] = vote([i], mults[i])[0]
+    return [(bool(r[0]), r[1], r[2], r[3]) for r in out], mults
 
 
-def _match_partial(head: _Snippet, rest: List[_Snippet], cfg: PipelineConfig,
-                   pad: Optional[_PadState] = None) -> None:
-    for other in rest:
-        vote = _match(head, other, cfg, pad)
+def _match_round(pairs: List[Tuple[_Snippet, _Snippet]], cfg: PipelineConfig,
+                 pad: _PadState) -> None:
+    """Match ``pairs`` (head, other) and give each accepted pair its two
+    edges, in the pairs' order (the greedy loop's tie order)."""
+    for (head, other), vote in zip(pairs, _match_pairs(pairs, cfg, pad)):
         if vote is not None:
             off, count = vote
             head.edges.append(_Edge(True, off, count, other))
@@ -401,8 +498,10 @@ def splice(fragments: List[Fragment], cfg: PipelineConfig,
         snippets = _extract_snippets(fragments, cfg, device, devices)
     pad = _PadState()
     pad.update(snippets)
-    for i in range(len(snippets)):
-        _match_partial(snippets[i], snippets[i + 1:], cfg, pad)
+    # the first round: every pair i < j, in the order of the loops over
+    # i, then j
+    _match_round([(h, o) for i, h in enumerate(snippets)
+                  for o in snippets[i + 1:]], cfg, pad)
 
     while True:
         best: Optional[Tuple[_Snippet, _Edge]] = None
@@ -428,6 +527,6 @@ def splice(fragments: List[Fragment], cfg: PipelineConfig,
             merged = _extract_snippet(merged_frag, cfg, device)
         snippets.insert(0, merged)
         pad.update([merged])
-        _match_partial(snippets[0], snippets[1:], cfg, pad)
+        _match_round([(merged, o) for o in snippets[1:]], cfg, pad)
 
     return [s.fragment for s in snippets]

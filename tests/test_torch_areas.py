@@ -33,7 +33,8 @@ torch.set_num_threads(2)
 
 CELL = "c64_areas_revisit"
 READERS = ["splice_matches.map", "splice_merges.map", "splice_need_ms.map",
-           "splice_vote_ms.map", "splice_extract_ms.map"]
+           "splice_vote_ms.map", "splice_extract_ms.map",
+           "splice_batches.map"]
 SEED = 2 ** 31 + 11
 
 
@@ -147,7 +148,7 @@ def test_build_gives_one_fragment_and_map_an_area(built):
 
 
 def test_splice_counts_and_spans(built):
-    _, _, _, _, record = built
+    config, _, _, _, record = built
     c = record.counters
     # 6 first-round pairs, then the merged snippet against the 2 left and
     # the next against the 1 left; only the two same-area pairs accepted
@@ -155,11 +156,20 @@ def test_splice_counts_and_spans(built):
     assert (c["splice.matches"], c["splice.rejects"]) == (9, 7)
     # the need is the join's own, so no join overflows its multiplicity
     assert c.get("splice.retries", 0) == 0
-    assert c.get("splice.jumps", 0) <= c["splice.matches"]
-    matches = {s.id for s in record.spans if s.name == "splice.match"}
+    assert c.get("splice.jumps", 0) == 0
+    # each round in chunks of the join-slot budget's pairs (the snippets
+    # hold fewer keypoints than the capacity 4096), one vote a chunk
+    cfg = _cfg(config)
+    step = tsplice._batch_pairs(cfg.join_multiplicity, cfg.splice_capacity)
+    assert step == tsplice.JOIN_SLOTS // (4 * 2 * 4096)
+    assert c["splice.batches"] == sum(-(-n // step) for n in (6, 2, 1)) == 3
+    spans = [s for s in record.spans if s.name == "splice.match"]
+    assert sum(s.attrs["pairs"] for s in spans) == c["splice.matches"]
+    assert [s.attrs["multiplicity"] for s in spans] == [4, 4, 4]
+    matches = {s.id for s in spans}
     for name in ("splice.need", "splice.vote"):
         found = [s for s in record.spans if s.name == name]
-        assert len(found) >= 9, name
+        assert len(found) == c["splice.batches"], name
         assert {s.parent for s in found} <= matches
         assert all(s.events is None for s in found)    # the CPU
 
@@ -259,6 +269,7 @@ def test_traced_run_reads_the_splice_metrics(tmp_path):
         if value is not None:
             m[metric["name"]] = value
     assert (m["splice_matches.map"], m["splice_merges.map"]) == (9, 2)
+    assert m["splice_batches.map"] == 3
     assert m["splice_need_ms.map"] > 0 and m["splice_extract_ms.map"] > 0
     assert m["splice_match_ms.map"] > m["splice_need_ms.map"]
     assert m["rematched_frames.map"] == 0
@@ -278,8 +289,8 @@ def fresh(monkeypatch):
 
 def _builds(instrumented: bool, merges: int):
     """Three ``build`` roots of a splice with one match (10 ms of vote on
-    the device) and ``merges`` merges, by a version with this change's
-    spans and counters or without them."""
+    the device, one batch) and ``merges`` merges, by a version with the
+    splice spans and counters or without them."""
     for _ in range(3):
         with profiling.span("build"):
             with profiling.span("splice"):
@@ -293,7 +304,7 @@ def _builds(instrumented: bool, merges: int):
                         with profiling.span("splice.need"):
                             pass
                         with profiling.span("splice.vote"):
-                            pass
+                            profiling.count("splice.batches")
                 if instrumented:
                     for _ in range(merges):
                         profiling.count("splice.merges")
@@ -313,9 +324,10 @@ def test_readers_without_the_instrumentation_read_none(fresh, monkeypatch,
         assert got["splice_merges.map"] == 0
         assert got["splice_need_ms.map"] >= 0
         assert got["splice_vote_ms.map"] == pytest.approx(10.0)
+        assert got["splice_batches.map"] == 1
     else:
         for name in ("splice_merges.map", "splice_need_ms.map",
-                     "splice_vote_ms.map"):
+                     "splice_vote_ms.map", "splice_batches.map"):
             assert got[name] is None, name
     assert all(harness.reader(n)({"builds": 3}) is None for n in READERS)
 

@@ -30,6 +30,7 @@ from remap_tpu_torch.ops import splice as tsplice_ops
 from remap_tpu_torch.ops import tables as ttab
 from remap_tpu_torch.pipeline import collect as tcollect
 from remap_tpu_torch.pipeline import splice as tsplice
+from remap_tpu_torch.utils import profiling
 
 from torch_parity import jax_twin, to_numpy, to_torch
 
@@ -142,29 +143,95 @@ def _setup(kind: str):
     return a, ma, b, np.ones(b.shape, np.uint8)
 
 
-@pytest.mark.parametrize("mult", [1, 16, 0], ids=["slot1", "slot16", "dense"])
-@pytest.mark.parametrize("kind", ["overlap", "disjoint", "partial", "stamps"])
-def test_match_fragments_matches_jax(kind, mult):
+def _pair(kind: str, swap: bool = False):
+    """(tables of a, tables of b, a's mask bucket, a's dims, b's dims) of
+    a :func:`_setup` pair, ``swap``ped: b's tables and mask first."""
     a, ma, b, mb = _setup(kind)
+    if swap:
+        a, ma, b, mb = b, mb, a, ma
     # the smallest power of two that holds both tables (stamps overflow
     # at any capacity here: both sides get the same truncated tables)
     cap = 2048 if kind in ("disjoint", "stamps") else 4096
-    ta, tb = _snippet_tables(a, cap), _snippet_tables(b, cap)
-    mask = _mask_bucket(ma)
-    da, db = (a.shape[1], a.shape[0]), (b.shape[1], b.shape[0])
-    want = jsplice_ops.match_fragments(
-        *(jnp.asarray(t) for t in ta + tb), jnp.asarray(mask),
-        jnp.asarray(np.array(da, np.int32)),
-        jnp.asarray(np.array(db, np.int32)), multiplicity=mult)
-    got = tsplice_ops.match_fragments(
-        *(to_torch(t) for t in ta + tb), to_torch(mask), da, db,
-        multiplicity=mult)
-    for name in ("offset", "count", "ok", "overflow", "needed_multiplicity"):
-        np.testing.assert_array_equal(
-            to_numpy(getattr(got, name)), np.asarray(getattr(want, name)),
-            err_msg=name)
+    return (_snippet_tables(a, cap), _snippet_tables(b, cap), _mask_bucket(ma),
+            (a.shape[1], a.shape[0]), (b.shape[1], b.shape[0]))
+
+
+#: a batch's rows: every kind both ways round, so the rows differ in
+#: heads, masks, dims and needs (stamps' codes repeat: its need passes
+#: multiplicity 1 and 16 beside rows whose need does not)
+_ROWS = [(kind, swap) for kind in ("stamps", "overlap", "partial",
+                                   "disjoint") for swap in (False, True)]
+
+
+def _batch_rows(n: int):
+    """``n`` rows of :data:`_ROWS` in turn, at one capacity (2048: the
+    larger tables cut there, alike on both sides) and one mask bucket, as
+    splice's pad state gives them."""
+    rows = []
+    for i in range(n):
+        ta, tb, mask, da, db = _pair(*_ROWS[i % len(_ROWS)])
+        rows.append([tuple(t[:2048] for t in ta),
+                     tuple(t[:2048] for t in tb), mask, da, db])
+    hb = max(r[2].shape[0] for r in rows)
+    wb = max(r[2].shape[1] for r in rows)
+    for r in rows:
+        m = np.zeros((hb, wb), np.uint8)
+        m[:r[2].shape[0], :r[2].shape[1]] = r[2]
+        r[2] = m
+    return rows
+
+
+def _batched_args(rows):
+    """The port's batched arguments of ``rows`` (tables, mask, dims)."""
+    tabs = [to_torch(np.stack([r[0][i] if i < 3 else r[1][i - 3]
+                               for r in rows])) for i in range(6)]
+    return (*tabs, to_torch(np.stack([r[2] for r in rows])),
+            torch.tensor([r[3] for r in rows]),
+            torch.tensor([r[4] for r in rows]))
+
+
+_FIELDS = ("offset", "count", "ok", "overflow", "needed_multiplicity")
+_MULTS = {"slot1": 1, "slot16": 16, "dense": 0}
+
+
+@pytest.mark.parametrize(
+    "kind,mult",
+    [(k, m) for k in ("overlap", "disjoint", "partial", "stamps", "batch3")
+     for m in _MULTS] + [("batch17", "slot1"), ("batch17", "slot16")],
+    ids=lambda v: v)
+def test_match_fragments_matches_jax(kind, mult):
+    """One pair (a batch of one) against the JAX package; a batch of 3 or
+    17 pairs that differ in heads, masks, dims and needs, each row equal
+    to its own one-pair call and to the JAX package's."""
+    mult = _MULTS[mult]
+    if not kind.startswith("batch"):
+        rows = [list(_pair(kind))]
+    else:
+        rows = _batch_rows(int(kind[5:]))
+    got = tsplice_ops.match_fragments(*_batched_args(rows),
+                                      multiplicity=mult)
+    assert got.ok.shape == (len(rows),) and got.offset.shape == (len(rows), 2)
+    jax_of = {}
+    for i, (ta, tb, mask, da, db) in enumerate(rows):
+        key = i % len(_ROWS)
+        if key not in jax_of:
+            jax_of[key] = jsplice_ops.match_fragments(
+                *(jnp.asarray(t) for t in ta + tb), jnp.asarray(mask),
+                jnp.asarray(np.array(da, np.int32)),
+                jnp.asarray(np.array(db, np.int32)), multiplicity=mult)
+        one = tsplice_ops.match_fragments(*_batched_args([rows[i]]),
+                                          multiplicity=mult)
+        for name in _FIELDS:
+            row = to_numpy(getattr(got, name)[i])
+            np.testing.assert_array_equal(
+                row, to_numpy(getattr(one, name)[0]), err_msg=name)
+            np.testing.assert_array_equal(
+                row, np.asarray(getattr(jax_of[key], name)), err_msg=name)
     if kind == "overlap" and mult != 1:
-        assert bool(got.ok) and got.offset.tolist() == [25, 30]
+        assert bool(got.ok[0]) and got.offset[0].tolist() == [25, 30]
+    if kind.startswith("batch") and mult:
+        # rows that overflow their join beside rows that do not
+        assert 0 < int(got.overflow.sum()) < len(rows)
 
 
 # ---- snippets ---------------------------------------------------------------
@@ -216,26 +283,37 @@ def test_bucketed_snippet_equals_exact_canvas_and_jax():
     assert snip.dims == want.dims == (cw, ch)
 
 
-@pytest.mark.parametrize("trial", range(4))
-def test_needed_multiplicity_matches_jax(trial):
+@pytest.mark.parametrize("trial,n", [(t, 1) for t in range(4)]
+                         + [(4, 3), (5, 17)],
+                         ids=[str(t) for t in range(4)] + ["n3", "n17"])
+def test_needed_multiplicity_matches_jax(trial, n):
     """The need read from the join's code sort equals the JAX package's
-    host estimate and the slot join's own ``needed_m``."""
-    codes, pos, valid = _repeated_tables(90 + trial)
+    host estimate and the slot join's own ``needed_m``: one pair, and
+    each row of a batch of 3 or 17 pairs of different tables."""
+    pairs = [_repeated_tables(90 + trial + i) for i in range(n)]
 
     class T:
         pass
 
-    jh, jo = T(), T()
-    jh.codes, jh.valid = codes[0], valid[0]
-    jo.codes, jo.valid = codes[1], valid[1]
-    want = jsplice._needed_multiplicity(jh, jo)
-    tabs = [to_torch(t[i]) for i in range(2) for t in (codes, pos, valid)]
+    want = []
+    for codes, _, valid in pairs:
+        jh, jo = T(), T()
+        jh.codes, jh.valid = codes[0], valid[0]
+        jo.codes, jo.valid = codes[1], valid[1]
+        want.append(jsplice._needed_multiplicity(jh, jo))
+    tabs = [to_torch(np.stack([p[j][i] for p in pairs]))
+            for i in range(2) for j in range(3)]
     tables = tsplice_ops.sort_tables(*tabs)
-    assert tables.need.dim() == 0
+    assert tables.need.shape == (n,)
     assert tsplice._needed_multiplicity(tables) == want
-    join = tkpm._join_slots(*(t[None] for t in tabs), 4, coord_limit=8192,
-                            curr=True)
-    assert int(join[7][0]) == want
+    join = tkpm._join_slots(*tabs, 4, coord_limit=8192, curr=True)
+    assert join[7].tolist() == want
+    for i in range(n):
+        one = tsplice_ops.sort_tables(*(t[i:i + 1] for t in tabs))
+        for got, row in zip(tables.rows, one.rows):
+            assert torch.equal(got[i], row[0])
+    if n > 1:
+        assert len(set(want)) > 1
 
 
 @pytest.mark.parametrize("at", ["under", "need", "dense"])
@@ -244,23 +322,24 @@ def test_match_fragments_takes_sorted_rows(at):
     sort: a multiplicity under the need (overflow), at it, and dense."""
     a, ma, b, _ = _setup("stamps")
     ta, tb = _snippet_tables(a, 2048), _snippet_tables(b, 2048)
-    tabs = [to_torch(t) for t in ta + tb]
+    tabs = [to_torch(t)[None] for t in ta + tb]
     tables = tsplice_ops.sort_tables(*tabs)
-    need = int(tables.need)
+    need = int(tables.need[0])
     assert need > 1
     m = {"under": 1, "need": need, "dense": 0}[at]
-    args = (*tabs, to_torch(_mask_bucket(ma)), (a.shape[1], a.shape[0]),
-            (b.shape[1], b.shape[0]))
+    args = (*tabs, to_torch(_mask_bucket(ma))[None],
+            torch.tensor([[a.shape[1], a.shape[0]]]),
+            torch.tensor([[b.shape[1], b.shape[0]]]))
     want = tsplice_ops.match_fragments(*args, multiplicity=m)
     got = tsplice_ops.match_fragments(*args, multiplicity=m,
                                       rows=tables.rows)
-    for name in ("offset", "count", "ok", "overflow", "needed_multiplicity"):
+    for name in _FIELDS:
         np.testing.assert_array_equal(
             to_numpy(getattr(got, name)), to_numpy(getattr(want, name)),
             err_msg=name)
-    assert bool(got.overflow) == (at == "under")
+    assert bool(got.overflow[0]) == (at == "under")
     if m:
-        assert int(got.needed_multiplicity) == need
+        assert int(got.needed_multiplicity[0]) == need
 
 
 def _both_snippets(a, ma, b, mb, cfg):
@@ -302,14 +381,70 @@ def test_match_walks_jax_multiplicities(case, monkeypatch):
     recorder(tsplice.splice_ops, "port")
     if case == "retry":
         monkeypatch.setattr(jsplice, "_needed_multiplicity", lambda h, o: 0)
-        monkeypatch.setattr(tsplice, "_needed_multiplicity", lambda t: 0)
+        monkeypatch.setattr(tsplice, "_needed_multiplicity",
+                            lambda t: [0] * len(t.need))
     want = jsplice._match(jh, jo, jax_twin(cfg))
-    got = tsplice._match(th, to, cfg)
+    builds = profiling.Recorder()
+    monkeypatch.setattr(profiling, "_RECORDER", builds)
+    with profiling.span("build"):
+        got = tsplice._match(th, to, cfg)
     assert got == want
     assert walked["port"] == walked["jax"]
     assert len(walked["port"]) == (2 if case == "retry" else 1)
+    # every vote a batch of its own, the retry's too
+    c = builds.records("build")[-1].counters
+    assert c["splice.batches"] == len(walked["port"])
+    assert c.get("splice.retries", 0) == len(walked["port"]) - 1
     if case != "plain":
         assert walked["port"][-1] > 1
+
+
+def test_match_pairs_batches_equal_one_pair_matches(monkeypatch):
+    """A round of 15 pairs of six snippets at multiplicity 1 in chunks of
+    4 pairs: the stamps pairs' needs jump into sub-batches of their own
+    beside pairs that do not, and every pair's vote equals its one-pair
+    ``_match`` and the JAX package's ``_match`` at the same pad state;
+    one code sort a chunk, one vote a sub-batch, no retry."""
+    cfg = dataclasses.replace(CFG, join_multiplicity=1)
+    snippets = []
+    for kind in ("overlap", "stamps", "disjoint"):
+        snippets += _both_snippets(*_setup(kind), cfg)
+    jpad, tpad = jsplice._PadState(), tsplice._PadState()
+    jpad.update([j for j, _ in snippets])
+    tpad.update([t for _, t in snippets])
+    monkeypatch.setattr(tsplice, "JOIN_SLOTS", 4 * 2 * tpad.cap)
+    assert tsplice._batch_pairs(1, tpad.cap) == 4
+    pairs = [(i, j) for i in range(6) for j in range(i + 1, 6)]
+    want = [jsplice._match(snippets[i][0], snippets[j][0], jax_twin(cfg),
+                           jpad) for i, j in pairs]
+    one = [tsplice._match(snippets[i][1], snippets[j][1], cfg, tpad)
+           for i, j in pairs]
+
+    votes = []
+    real = tsplice.splice_ops.match_fragments
+
+    def rec(*args, **kwargs):
+        votes.append((args[0].shape[0], kwargs["multiplicity"]))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tsplice.splice_ops, "match_fragments", rec)
+    recorder = profiling.Recorder()
+    monkeypatch.setattr(profiling, "_RECORDER", recorder)
+    with profiling.span("build"):
+        got = tsplice._match_pairs(
+            [(snippets[i][1], snippets[j][1]) for i, j in pairs], cfg, tpad)
+    assert got == one == want
+    assert any(v is not None for v in got)
+    record = recorder.records("build")[-1]
+    c = record.counters
+    spans = [s for s in record.spans if s.name == "splice.match"]
+    assert [s.attrs["pairs"] for s in spans] == [4, 4, 4, 3]
+    assert c["splice.matches"] == 15 and c.get("splice.retries", 0) == 0
+    assert 0 < c["splice.jumps"] < 15
+    assert c["splice.batches"] == len(votes) > len(spans)
+    assert sum(n for n, _ in votes) == 15
+    assert {m for _, m in votes} > {1}
+    assert len([s for s in record.spans if s.name == "splice.need"]) == 4
 
 
 # ---- merges -----------------------------------------------------------------
