@@ -31,6 +31,7 @@ from remap_tpu_torch.core.geometry import Rect
 from remap_tpu_torch.io import native as _native
 from remap_tpu_torch.io import png as _png
 from remap_tpu_torch.pipeline.state import pack_nibbles_batch
+from remap_tpu_torch.utils import profiling
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 
@@ -116,7 +117,16 @@ class RawDirectoryFeed:
         a byte: ``[n, ch, ceil(cw / 2)]`` uint8 (n = the frames that exist),
         equal to ``pack_nibbles_batch`` of the ``read()`` images.  Read by
         the native threaded reader (``native/feed.cpp``), or, with
-        ``native=False``, by ``read()`` and the NumPy packer."""
+        ``native=False``, by ``read()`` and the NumPy packer.  Each read is
+        a span, ``feed.read``, on the thread that reads, and counts its
+        frames (``feed.frames``)."""
+        with profiling.span("feed.read"):
+            out = self._read_packed_batch(start, count, native)
+            profiling.count("feed.frames", len(out))
+        return out
+
+    def _read_packed_batch(self, start: int, count: int,
+                           native: bool) -> np.ndarray:
         ch, cw = self.out_dims
         paths = self.files[start:start + count]
         if not paths:

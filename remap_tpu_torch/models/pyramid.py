@@ -8,9 +8,7 @@ a small window directly, each current frame rolled by its own coarse
 estimate (``ops.correlate.fine_counts``: one kernel on the card, which
 reads the rolled frame in place).  Each level is a span
 (``pyramid.coarse``, ``pyramid.fine``) with CUDA events on the frames'
-device, and each call counts its pairs (``pyramid.pairs``) and the fine
-level's shifted compares (``pyramid.fine_shifts``, pairs x (2
-fine_radius + 1)^2).
+device, and each call counts its pairs (``pyramid.pairs``).
 """
 
 from __future__ import annotations
@@ -44,7 +42,6 @@ def match_pyramid(prev: torch.Tensor, curr: torch.Tensor, factor: int = 4,
             correlate.fine_counts(prev, curr, base, fine_radius), h, w,
             min_cover=0.15)
     profiling.count("pyramid.pairs", pairs)
-    profiling.count("pyramid.fine_shifts", pairs * (2 * fine_radius + 1) ** 2)
     return base + fine.offset, coarse.ok & fine.ok
 
 

@@ -25,6 +25,7 @@ import torch
 from remap_tpu_torch.core.regions import make_layout
 from remap_tpu_torch.ops import kpe as kpe_ops
 from remap_tpu_torch.ops.kernels import cc as kcc
+from remap_tpu_torch.utils import profiling
 
 
 def equality_mask(background: torch.Tensor, frames: torch.Tensor,
@@ -159,13 +160,20 @@ def extract_batch(background: torch.Tensor, frames: torch.Tensor,
     (K1's medians-only instantiation on the card), as they are a pure
     function of the frame
     (kpe.hpp:308-314); otherwise ``medians`` ``[B, H, W]`` uint8 are
-    used.  Nothing here waits for the device."""
+    used.  Nothing here waits for the device.  Two spans with CUDA
+    events on the frames' device split it: ``foreground.labels`` (the
+    medians, the changed mask, K4's labels and stats) and
+    ``foreground.masks`` (:func:`masks_from_stats_sorted`)."""
     _, h, w = frames.shape
     limit = (h * w) // area_divisor
-    if compute_medians:
-        # processed bounds depend only on the frame dims, not the grid
-        layout = make_layout(w, h, 1, 1, 0)
-        medians = kpe_ops.extract_medians(frames, layout)
-    changed = ~equality_mask(background, frames, positions)
-    labels, stats = kcc.label_stats_batch(medians, changed.to(torch.uint8))
-    return masks_from_stats_sorted(labels, stats, limit).to(torch.uint8)
+    dev = frames.device
+    with profiling.span("foreground.labels", device=dev):
+        if compute_medians:
+            # processed bounds depend only on the frame dims, not the grid
+            layout = make_layout(w, h, 1, 1, 0)
+            medians = kpe_ops.extract_medians(frames, layout)
+        changed = ~equality_mask(background, frames, positions)
+        labels, stats = kcc.label_stats_batch(medians,
+                                              changed.to(torch.uint8))
+    with profiling.span("foreground.masks", device=dev):
+        return masks_from_stats_sorted(labels, stats, limit).to(torch.uint8)

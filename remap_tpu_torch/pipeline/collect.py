@@ -30,11 +30,12 @@ batch's last frame, and raise no escalation flag.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, List, Optional, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,7 +90,16 @@ def _stack_scalars(offset, ok, tab_ovf, join_ovf, range_ovf, kp_need):
     return torch.cat([c.to(torch.int32) for c in cols], dim=1)
 
 
-def make_collect_step(layout: GridLayout, cfg: PipelineConfig):
+def _untraced(name: str, device=None):
+    return contextlib.nullcontext()
+
+
+def _keep(median: torch.Tensor, scalars: torch.Tensor):
+    return median, scalars
+
+
+def make_collect_step(layout: GridLayout, cfg: PipelineConfig,
+                      traced: bool = False):
     """The pass-1 step for a fixed layout and config:
     ``step(images [B, H, W] uint8, carry) -> (packed medians [B, H,
     ceil(W/2)] uint8, scalars [B, 7] int32, new carry)``, on the device of
@@ -97,14 +107,29 @@ def make_collect_step(layout: GridLayout, cfg: PipelineConfig):
     ``cfg.matcher``'s family (``models.family``): grid_vote's tables, the
     correlation families' frame.  The three escalation signals stay apart
     (raise capacity, raise multiplicity, count exactly); each frame's
-    kp_need lets the ladder choose the capacity its pairs need."""
-    family = models.family(cfg, layout)
+    kp_need lets the ladder choose the capacity its pairs need.
+    ``step(images, carry, fetch)`` returns ``fetch(packed medians,
+    scalars)`` in place of the pair, fetched inside the step's tail.
 
-    def step(images: torch.Tensor, carry):
-        features, medians = family.features(images)
-        res, carry = family.align(features, carry)
-        scalars = _stack_scalars(*res[:2], *family.flags(res, features))
-        return pack_nibbles_device(medians()), scalars, carry
+    With ``traced``, each phase is a span with CUDA events on the images'
+    device: ``collect.features``, ``collect.match`` (the keypoint
+    family's alone: the correlation families name their own levels, such
+    as ``pyramid.coarse``, directly under the pass) and
+    ``collect.scalars`` (the flags, the stacked scalars, the packed
+    medians and ``fetch``)."""
+    family = models.family(cfg, layout)
+    span = profiling.span if traced else _untraced
+    match_span = span if family.keypoints else _untraced
+
+    def step(images: torch.Tensor, carry, fetch=_keep):
+        dev = images.device
+        with span("collect.features", device=dev):
+            features, medians = family.features(images)
+        with match_span("collect.match", device=dev):
+            res, carry = family.align(features, carry)
+        with span("collect.scalars", device=dev):
+            scalars = _stack_scalars(*res[:2], *family.flags(res, features))
+            return (*fetch(pack_nibbles_device(medians()), scalars), carry)
 
     return step
 
@@ -135,31 +160,38 @@ class StoreReplay:
     def __len__(self) -> int:
         return len(self.store)
 
-    def batch(self, start: int, b: int) -> Tuple[torch.Tensor, int]:
-        """The packed frames from ``start``, padded to ``b`` rows by
-        repeating the last (as host batches pad), and how many are
-        real."""
+    def batch(self, start: int, b: int) -> Tuple[Callable, int]:
+        """A call that gives the packed frames from ``start`` on the
+        device, padded to ``b`` rows by repeating the last (as host
+        batches pad), and how many are real.  The mirror's gather runs in
+        the call (the batch loop makes it in its upload span); host rows
+        are uploaded at once, under ``collect.host_pack``."""
         n_real = min(b, len(self) - start)
         numbers = (list(range(start, start + n_real))
                    + [start + n_real - 1] * (b - n_real))
         if self.store.mirrored >= start + n_real:
-            profiling.count("collect.replay_mirror_frames", b)
-            return self.store.device_packed_batch(numbers), n_real
+            return (lambda: self.store.device_packed_batch(numbers)), n_real
         with profiling.span("collect.host_pack"):
-            return self.store.device_packed_batch(numbers), n_real
+            rows = self.store.device_packed_batch(numbers)
+        return (lambda: rows), n_real
 
 
 class BatchLoop:
     """The match pass's per-batch dispatch, drain and store (also the
     streaming stitcher's): each batch runs the collect step on the carry,
     its scalars (and medians) come back through a non-blocking copy
-    ``depth`` batches behind, and its frames land in ``store``, if any."""
+    ``depth`` batches behind, and its frames land in ``store``, if any.
+    With ``traced`` (the match pass), each batch's phases are spans: its
+    upload (``collect.upload``), the step's (:func:`make_collect_step`)
+    and its store (``collect.store``, on the host)."""
 
     def __init__(self, layout: GridLayout, cfg: PipelineConfig,
-                 store: Optional[FrameStore], device, depth: int):
+                 store: Optional[FrameStore], device, depth: int,
+                 traced: bool = False):
         self.cfg, self.store, self.device = cfg, store, device
         self.depth = max(1, depth)
-        self.step = make_collect_step(layout, cfg)
+        self.span = profiling.span if traced else _untraced
+        self.step = make_collect_step(layout, cfg, traced)
         self.carry = models.family(cfg, layout).empty_carry(device)
         self.pending: deque = deque()
         #: per drained batch: split_step_scalars of its real frames, frame
@@ -167,24 +199,28 @@ class BatchLoop:
         self.drained = [split_step_scalars(np.zeros((0, 7), np.int32))]
 
     def dispatch(self, number: int, n_real: int, packed, width: int,
-                 packed_dev=None) -> None:
+                 rows: Optional[Callable] = None) -> None:
         """Run the step on one packed batch: frames cross packed (2
         px/byte) and unpack on the device; the device copy is donated to
         the store's mirror, so the blit and foreground passes never upload
-        them again.  A batch already on the device (``packed_dev``)
+        them again.  A batch already on the device (``rows()`` gives it)
         crosses nothing."""
-        if packed_dev is None:
-            packed_dev = upload(packed, self.device)
-        median, scalars, self.carry = self.step(
-            unpack_nibbles_device(packed_dev, width), self.carry)
-        fetched = (HostCopy(scalars, median) if self.cfg.store_medians
-                   else HostCopy(scalars))
+        with self.span("collect.upload", device=self.device):
+            packed_dev = (upload(packed, self.device) if rows is None
+                          else rows())
+            images = unpack_nibbles_device(packed_dev, width)
+        median, fetched, self.carry = self.step(images, self.carry,
+                                                self._fetch)
         self.pending.append(
             (number, n_real, packed, packed_dev, median, fetched))
         # keep up to `depth` batches in flight: batch n is drained after
         # batch n+depth is dispatched
         if len(self.pending) >= self.depth:
             self.drain()
+
+    def _fetch(self, median: torch.Tensor, scalars: torch.Tensor):
+        return median, (HostCopy(scalars, median) if self.cfg.store_medians
+                        else HostCopy(scalars))
 
     def drain(self) -> None:
         """Take the oldest dispatched batch's outputs, waiting for its
@@ -199,11 +235,13 @@ class BatchLoop:
         self.drained.append((off, ok, *flags))
         if self.store is not None:
             medians = self.cfg.store_medians
-            self.store.put_packed_batch(
-                list(range(num, num + n_real)), packed[:n_real],
-                host[1][:n_real] if medians else None,
-                device_packed=packed_dev[:n_real],
-                device_packed_medians=median[:n_real] if medians else None)
+            with self.span("collect.store"):
+                self.store.put_packed_batch(
+                    list(range(num, num + n_real)), packed[:n_real],
+                    host[1][:n_real] if medians else None,
+                    device_packed=packed_dev[:n_real],
+                    device_packed_medians=(median[:n_real] if medians
+                                           else None))
 
     def results(self):
         """Everything in flight drained: (offsets, matched, table_flags,
@@ -233,24 +271,32 @@ def match_pass(
     truncation and the vote-radius bound of the (t-1, t) declaration),
     and each frame's true maximum per-region keypoint count."""
     dev = get_device(device)
-    loop = BatchLoop(layout, cfg, store, dev, cfg.collect_drain_depth)
+    loop = BatchLoop(layout, cfg, store, dev, cfg.collect_drain_depth,
+                     traced=True)
     b = n_real = cfg.frame_batch
     replay = frames if isinstance(frames, StoreReplay) else None
     feed = frames if hasattr(frames, "read_packed_batch") else None
     it = None if feed is not None or replay is not None else iter(frames)
     # the feed reads batch n+1 on a worker thread (the native reader, off
-    # the GIL) while the device computes batch n
+    # the GIL) while the device computes batch n; its reads are spans of
+    # the pass
     pool = ThreadPoolExecutor(max_workers=1) if feed is not None else None
-    fut = pool.submit(feed.read_packed_batch, 0, b) if pool else None
+    held = profiling.current()
+
+    def read(start: int) -> np.ndarray:
+        with profiling.adopt(held):
+            return feed.read_packed_batch(start, b)
+
+    fut = pool.submit(read, 0) if pool else None
     number = 0
     try:
         while n_real == b:  # a short batch is the last
-            packed_dev = None
+            rows = None
             if replay is not None:
                 # the stored packed rows, already on the device
                 if number >= len(replay):
                     break
-                packed_dev, n_real = replay.batch(number, b)
+                rows, n_real = replay.batch(number, b)
                 packed, width = None, replay.store.width
             elif feed is not None:
                 # packed by the native reader: nothing packs or unpacks on
@@ -261,8 +307,7 @@ def match_pass(
                 if n_real == 0:
                     break
                 if n_real == b:
-                    fut = pool.submit(feed.read_packed_batch,
-                                      number + n_real, b)
+                    fut = pool.submit(read, number + n_real)
                 else:
                     packed = np.concatenate(
                         [packed, np.repeat(packed[-1:], b - n_real, axis=0)])
@@ -276,7 +321,7 @@ def match_pass(
                     stacked = np.stack(batch + [batch[-1]] * (b - n_real))
                     packed = pack_nibbles_batch(stacked)
                 width = stacked.shape[-1]
-            loop.dispatch(number, n_real, packed, width, packed_dev)
+            loop.dispatch(number, n_real, packed, width, rows)
             number += n_real
     finally:
         if pool is not None:
@@ -291,18 +336,26 @@ def make_pair_step(layout: GridLayout, cfg: PipelineConfig):
     ``pair_step(prev [B, H, W], curr [B, H, W]) -> scalars [B, 7] int32``,
     laid out as the collect step's (tab flags either endpoint's, kp_need
     the larger).  It is the grid_vote matcher's: the correlation families
-    raise no flag, so the ladder never re-matches their pairs."""
+    raise no flag, so the ladder never re-matches their pairs.  Each phase
+    is a span with CUDA events on the frames' device: ``collect.features``
+    (one for each side), ``collect.match`` and ``collect.scalars``."""
     family = models.GridVote(layout, cfg)
     kp_need = models.grid_vote.kp_need
 
     def pair_step(prev_images: torch.Tensor, curr_images: torch.Tensor):
-        (tp, _), (tc, _) = map(family.features, (prev_images, curr_images))
-        res = family.match(tp, tc)
-        return _stack_scalars(
-            res.offset, res.ok,
-            tp.overflow.any(dim=-1) | tc.overflow.any(dim=-1),
-            res.overflow, res.range_overflow,
-            torch.maximum(kp_need(tp), kp_need(tc)))
+        dev = prev_images.device
+        with profiling.span("collect.features", device=dev):
+            tp, _ = family.features(prev_images)
+        with profiling.span("collect.features", device=dev):
+            tc, _ = family.features(curr_images)
+        with profiling.span("collect.match", device=dev):
+            res = family.match(tp, tc)
+        with profiling.span("collect.scalars", device=dev):
+            return _stack_scalars(
+                res.offset, res.ok,
+                tp.overflow.any(dim=-1) | tc.overflow.any(dim=-1),
+                res.overflow, res.range_overflow,
+                torch.maximum(kp_need(tp), kp_need(tc)))
 
     return pair_step
 
@@ -327,10 +380,12 @@ def repair_pairs(
     rows = [np.zeros((0, 7), np.int32)]
     for i in range(0, len(pair_idx), b):
         chunk = list(pair_idx[i:i + b])
-        prev_imgs = unpack_nibbles_device(
-            store.device_packed_batch([t - 1 for t in chunk]), store.width)
-        curr_imgs = unpack_nibbles_device(store.device_packed_batch(chunk),
-                                          store.width)
+        with profiling.span("collect.upload", device=store.device):
+            prev_imgs = unpack_nibbles_device(
+                store.device_packed_batch([t - 1 for t in chunk]),
+                store.width)
+            curr_imgs = unpack_nibbles_device(
+                store.device_packed_batch(chunk), store.width)
         rows.append(step(prev_imgs, curr_imgs).cpu().numpy())
     off, ok, tabs, joins, ranges, kpn = split_step_scalars(
         np.concatenate(rows))

@@ -76,7 +76,9 @@ def filter_fragments(fragments: List[Fragment], cfg: PipelineConfig,
 def _filter_batch(store, chunk, positions, frag: Fragment, background, out,
                   cfg: PipelineConfig, recompute: bool, dev) -> None:
     """One batch of a fragment's frames: their foreground masks against
-    ``background``, then their masked votes blitted into ``out``."""
+    ``background`` (``ops.fde.extract_batch``'s spans), then their masked
+    votes blitted into ``out`` (``foreground.blit``, with CUDA events on
+    ``dev``)."""
     b = cfg.frame_batch
     n_real = len(chunk)
     imgs = padded_chunk(store, chunk, b, device=dev)
@@ -90,7 +92,8 @@ def _filter_batch(store, chunk, positions, frag: Fragment, background, out,
     )
     # the leading n_real frames (views): padding frames vote nowhere; a
     # pixel votes where its mask is 0 (fgm.hpp:71-97)
-    kblit.blit_frames_(
-        imgs[:n_real], apos[:n_real], out, vote=fg[:n_real],
-        vote_polarity="zero",
-        box=chunk_box(positions, frag.zero, store.height, store.width))
+    with profiling.span("foreground.blit", device=dev):
+        kblit.blit_frames_(
+            imgs[:n_real], apos[:n_real], out, vote=fg[:n_real],
+            vote_polarity="zero",
+            box=chunk_box(positions, frag.zero, store.height, store.width))

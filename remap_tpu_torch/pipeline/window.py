@@ -126,7 +126,6 @@ def scan(frames: Iterable[np.ndarray], cfg: PipelineConfig,
                       else aws_ops.best_contour_jit)
                 with profiling.span("window.label"):
                     last = fn(heatmaps[i]).cpu().numpy()
-                    profiling.count("window.labels")
             color, carea, cbbox = last[0], last[1], last[2:]
             if color == 0 and carea > area:
                 stagnation = 0
@@ -161,15 +160,23 @@ def scan(frames: Iterable[np.ndarray], cfg: PipelineConfig,
                 stagnation += 1
 
     pool = ThreadPoolExecutor(max_workers=1)
+    # the reader's spans (a feed's ``feed.read``) are the scan's
+    held = profiling.current()
+
+    def read_next():
+        with profiling.adopt(held):
+            return next(gen, None)
+
     try:
         gen = produce()
-        fut = pool.submit(next, gen, None)
+        fut = pool.submit(read_next)
         pending: deque[Tuple] = deque()
         while not done:
-            item = fut.result()
+            with profiling.span("window.feed_wait"):
+                item = fut.result()
             if item is None:
                 break
-            fut = pool.submit(next, gen, None)
+            fut = pool.submit(read_next)
             packed, n_real = item
             imgs = unpack_nibbles_device(upload(packed, dev), w)
             if robust:

@@ -10,10 +10,11 @@ kernels, and writes a Chrome trace into ``log_dir``.
 
 :func:`span` records a named stretch of the program on the host clock:
 its start and end, its parent (the span open around it in the same
-thread), the root it belongs to (a ``build`` for the map build's spans)
+thread, or the one the thread adopted), the root it belongs to (a ``build`` for the map build's spans)
 and its attributes; :func:`count` adds to a counter of the open span and
 of its root.  Spans are stamped at stage, rung and batch boundaries,
-never per frame or pixel.  A span given a CUDA ``device`` also records
+never per frame or pixel.  A worker thread adopts the span that asked
+for its work (:func:`current`, :func:`adopt`).  A span given a CUDA ``device`` also records
 a CUDA event at each end, read only when :meth:`Span.device_ms` asks;
 nothing else waits for the card.  While a ``torch.profiler`` runs, each
 span is also a host range on its timeline, so the trace names what the
@@ -225,6 +226,9 @@ class Recorder:
         self._ids = itertools.count(1)
         self._local = threading.local()
         self._roots: Dict[str, deque] = {}
+        # a worker thread's spans join a record that another thread
+        # appends to and counts in
+        self._lock = threading.Lock()
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -238,7 +242,8 @@ class Recorder:
         if stack:
             parent, record = stack[-1]
             s = Span(sid, name, parent.id, parent.root, attrs)
-            record.spans.append(s)
+            with self._lock:
+                record.spans.append(s)
         else:
             s = Span(sid, name, None, sid, attrs)
             record = Record([s], _launches() if name == "build" else {})
@@ -263,18 +268,24 @@ class Recorder:
             # the wrappers' cumulative counts, as deltas over the build
             for k, v in _launches().items():
                 record.counters[k] = v - record.counters[k]
-        roots = self._roots.get(s.name)
-        if roots is None:
-            roots = self._roots[s.name] = deque(maxlen=MAX_ROOTS)
-        roots.append(record)
+        with self._lock:
+            roots = self._roots.get(s.name)
+            if roots is None:
+                roots = self._roots[s.name] = deque(maxlen=MAX_ROOTS)
+            roots.append(record)
 
     def count(self, name: str, n: int = 1) -> None:
         stack = self._stack()
         if not stack:
             return
         s, record = stack[-1]
-        s.counts[name] = s.counts.get(name, 0) + n
-        record.counters[name] = record.counters.get(name, 0) + n
+        with self._lock:
+            s.counts[name] = s.counts.get(name, 0) + n
+            record.counters[name] = record.counters.get(name, 0) + n
+
+    def current(self) -> Optional[tuple]:
+        stack = self._stack()
+        return stack[-1] if stack else None
 
     def last(self, name: str) -> Optional[Span]:
         stack = self._stack()
@@ -320,6 +331,32 @@ def count(name: str, n: int = 1) -> None:
     nothing while no span is open or recording is off."""
     if _RECORDER.enabled:
         _RECORDER.count(name, n)
+
+
+def current() -> Optional[tuple]:
+    """The innermost span open in this thread, with its root's record,
+    for :func:`adopt` in another thread; None while no span is open or
+    recording is off."""
+    return _RECORDER.current() if _RECORDER.enabled else None
+
+
+@contextlib.contextmanager
+def adopt(held: Optional[tuple]):
+    """Spans opened in this thread inside the block are children of
+    ``held`` (what :func:`current` gave in the thread that asked for the
+    work) and land in its root's record, not in roots of their own.
+    ``held`` is not closed here, and may close first: a worker's span can
+    outlast the span that asked for it.  With ``held`` None the block
+    records as it would without."""
+    if held is None:
+        yield
+        return
+    stack = _RECORDER._stack()
+    stack.append(held)
+    try:
+        yield
+    finally:
+        stack.pop()
 
 
 def last(name: str) -> Optional[Span]:

@@ -273,8 +273,13 @@ def test_traced_run_reads_the_splice_metrics(tmp_path):
     assert m["splice_need_ms.map"] > 0 and m["splice_extract_ms.map"] > 0
     assert m["splice_match_ms.map"] > m["splice_need_ms.map"]
     assert m["rematched_frames.map"] == 0
+    assert m["feed_read_ms.map"] > 0 and m["collect_dispatch_ms.map"] > 0
+    # collect reads every frame, the window scan at least the first
+    assert m["feed_frames.map"] > config["session"]["frames"]
     # no CUDA events on the CPU: no device time to read
     assert "splice_vote_ms.map" not in m and "idle_share.map" not in m
+    assert not {"collect_features_ms.map", "collect_match_ms.map",
+                "foreground_labels_ms.map"} & set(m)
 
 
 # ---- the readers ----------------------------------------------------------
@@ -362,7 +367,10 @@ def test_harness_finds_the_cell():
         "foreground_ms.map", "clean_ms.map", "idle_share.map",
         "peak_gib.map", "first_pass_ms.map", "rungs_ms.map",
         "rematched_frames.map", "batch_prep_ms.map", "drain_wait_ms.map",
-        "splice_match_ms.map"} | set(READERS)
+        "splice_match_ms.map", "feed_read_ms.map", "feed_frames.map",
+        "collect_dispatch_ms.map", "collect_features_ms.map",
+        "collect_match_ms.map", "foreground_labels_ms.map",
+        "foreground_masks_ms.map", "foreground_blit_ms.map"} | set(READERS)
     for name in READERS:
         m = next(m for m in bench["per_layer"] if m["name"] == name)
         assert (m["layer"], m["moves"]) == ("splice", "map_fps")

@@ -566,9 +566,10 @@ REPLAY_CFG = dataclasses.replace(CFG, region_capacity=16)
 def test_replay_reads_the_device_mirror(n_frames, width, recorded):
     """A store whose mirror holds every frame ("hbm", on the CPU here)
     feeds the full replay from the mirror: no host pack under the
-    replay, every batch counted, padding included; results equal the
-    host path's ("host") and the JAX package's, whole batches or a short
-    last one at an odd width."""
+    replay, every batch gathered in its upload span, the short last one
+    padded; results equal the host path's ("host", one host pack a
+    replay batch) and the JAX package's, whole batches or a short last
+    one at an odd width."""
     frames = _replay_clip(n_frames, width)
     got = {}
     for store in ("hbm", "host"):
@@ -580,17 +581,17 @@ def test_replay_reads_the_device_mirror(n_frames, width, recorded):
         by_id = {s.id: s for s in record.spans}
         packs = [s for s in record.spans if s.name == "collect.host_pack"
                  and by_id[s.parent].attrs["rung"] >= 1]
-        padded = -(-n_frames // cfg.frame_batch) * cfg.frame_batch
-        mirror_frames = record.counters.get("collect.replay_mirror_frames",
-                                            0)
+        batches = -(-n_frames // cfg.frame_batch)
+        padded = batches * cfg.frame_batch
+        for s in replays:
+            uploads = [u for u in record.spans
+                       if u.name == "collect.upload" and u.parent == s.id]
+            assert len(uploads) == batches
         if store == "hbm":
             assert res.store.mirrored == n_frames
             assert not packs
-            for s in replays:
-                assert s.counts["collect.replay_mirror_frames"] == padded
-            assert mirror_frames == padded * len(replays)
         else:
-            assert packs and mirror_frames == 0
+            assert len(packs) == batches * len(replays)
         assert record.counters["collect.rematched_frames"] == (
             padded * len(replays))
         got[store] = convert.collect_result_to_numpy(res)
@@ -631,7 +632,6 @@ def test_replay_without_a_mirror_packs_on_the_host(dropped_by, recorded,
                             per_frame * cfg.frame_batch)
     res, record = recorded(frames, cfg)
     assert not res.store.mirror_enabled and res.store.mirrored == 0
-    assert record.counters.get("collect.replay_mirror_frames", 0) == 0
     by_id = {s.id: s for s in record.spans}
     assert any(s.name == "collect.host_pack"
                and by_id[s.parent].attrs["rung"] >= 1 for s in record.spans)

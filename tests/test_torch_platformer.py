@@ -295,8 +295,11 @@ def test_traced_run_reads_the_ladder_metrics(tmp_path):
     assert m["join_flagged_pairs.map"] > 0
     assert m["rematched_frames.map"] == 48
     assert m["rungs_ms.map"] > 0
+    assert m["collect_dispatch_ms.map"] > 0 and m["feed_read_ms.map"] > 0
     # no CUDA events on the CPU: no device time to read
     assert "join_rungs_ms.map" not in m and "idle_share.map" not in m
+    assert not {"collect_features_ms.map", "collect_match_ms.map",
+                "foreground_blit_ms.map"} & set(m)
 
 
 # ---- the readers ----------------------------------------------------------
@@ -382,8 +385,11 @@ def test_harness_finds_the_cell():
         "window_ms.map", "collect_ms.map", "splice_ms.map",
         "foreground_ms.map", "clean_ms.map", "idle_share.map",
         "peak_gib.map", "first_pass_ms.map", "rungs_ms.map",
-        "rematched_frames.map", "batch_prep_ms.map", "drain_wait_ms.map"
-    } | set(READERS)
+        "rematched_frames.map", "batch_prep_ms.map", "drain_wait_ms.map",
+        "feed_read_ms.map", "feed_frames.map", "collect_dispatch_ms.map",
+        "collect_features_ms.map", "collect_match_ms.map",
+        "foreground_labels_ms.map", "foreground_masks_ms.map",
+        "foreground_blit_ms.map"} | set(READERS)
     for name, cells in (
             ("join_flagged_pairs.map",
              [CELL, "c64_map_break", "c64_map_clean"]),

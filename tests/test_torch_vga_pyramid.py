@@ -143,8 +143,12 @@ def test_build_records_the_pyramid_levels(fresh):
     # last padded: one a frame when the batch divides the clip
     pairs = batches * batch
     assert record.counters["pyramid.pairs"] == pairs == n_frames
-    assert record.counters["pyramid.fine_shifts"] == 121 * pairs
     assert passes[0].counts["pyramid.pairs"] == pairs
+    # the pyramid names its own match: the pass holds no collect.match
+    assert {s.parent for s in spans if s.name in (
+        "collect.upload", "collect.features", "collect.scalars")} == {
+            passes[0].id}
+    assert not any(s.name == "collect.match" for s in spans)
     # no CUDA events on the CPU: nothing to read
     for name in READERS:
         assert harness.reader(name)({"builds": 1}) is None
@@ -207,7 +211,9 @@ def test_harness_finds_the_cell():
         "foreground_ms.map", "clean_ms.map", "idle_share.map",
         "peak_gib.map", "first_pass_ms.map", "batch_prep_ms.map",
         "drain_wait_ms.map", "splice_match_ms.map", "splice_matches.map",
-        "splice_merges.map"} | set(READERS)
+        "splice_merges.map", "feed_read_ms.map", "feed_frames.map",
+        "foreground_labels_ms.map", "foreground_masks_ms.map",
+        "foreground_blit_ms.map"} | set(READERS)
     for name in READERS:
         entry = next(m for m in bench["per_layer"] if m["name"] == name)
         assert (entry["layer"], entry["moves"], entry["workloads"]) == (
